@@ -5,20 +5,36 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-     build of the five CUDA kernels from csrc/;
+     build of the six CUDA kernels from csrc/ (one nvcc per source, in
+     parallel);
   2. each kernel against its plain PyTorch version on CUDA tensors at the
      main path's shapes, bit-exact (integers, tolerance 0), with times; and
      the count store + traversal on CUDA against the same on the CPU at
-     k = 21, 33, 55, 99 (every instantiation of the kernels' templates);
+     k = 21, 33, 55, 63, 77, 99 (every instantiation of the kernels' templates),
+     and at each k the split LSM on CUDA (every push collapsed, the cascade
+     merging or deferring, ranged folds) against the CPU's raw-path table;
   3. the CI sample (ci/make_sample.py's default community, regenerated with
      the port's synth) end to end through the CLI entry point, checked
      against the JAX package's FASTA digest and ci/good-synth-sample-k2133.txt;
-  4. a real-size run: the --arctic-scale community cut to 3 genomes
-     (6.75 Mbp, 8x, 100 bp pairs), all five launch counts > 0 and >= 95% of
-     the assembled bases in exact substrings of the genomes.
-Prints the kernels' JSON summary, then the card line, then as the last line
-{"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no result.
-Work files go to chip_smoke_work/ next to this script (removed at the end).
+  4. the --arctic-scale community cut to 3 genomes (6.75 Mbp, 8x, 100 bp
+     pairs, k = 21 33), checked against the JAX package's FASTA digest,
+     the launch counts of its five kernels > 0, and >= 95% of the assembled
+     bases in exact substrings of the genomes;
+  5. the full --arctic-scale community (12 genomes, 27 Mbp, 2.16M reads)
+     through the CLI with the default k ladder 21 33 55 77 99: per-k
+     counting log (blocks, raw rows, split-LSM collapses, cascade merges and
+     deferrals, ranged pieces, table rows, peak device memory), all six
+     launch counts > 0, at least one collapse, one ranged read fold and one
+     ranged ctg-rule fold, and >= 95% exact-substring bases;
+  6. store-level equality on that community's reads plus contig windows cut
+     from its genomes, at k = 33 (packed) and k = 77 (separate payload):
+     the count store with the collapse, deferred cascades and ranged folds
+     forced gives the table of the raw-only path (digest of words, count,
+     left, right).
+Prints the kernels' JSON summary (launch counts of phase 5), then the card
+line, then as the last line {"ok": true, "device": {...}}. Without CUDA it
+exits 2 and prints no result. Work files go to chip_smoke_work/ next to
+this script (removed at the end).
 """
 
 from __future__ import annotations
@@ -39,6 +55,13 @@ CI_FASTQ_SHA256 = "d0409d7f481511021635839eb02cc4c264371be2afda1f68b8e5f4e85a817
 CI_FASTA_SHA256 = "a17c6e42edf61813c7d47128a0efa75f6461930485cc80dfbe31152ce664b2f3"
 ARCTIC3_FASTQ_SHA256 = "491bd9fb910e892ec85dc9dd8d8358aaaddc598794d4b6f1aaa78b08cf43be15"
 ARCTIC3_FASTA_SHA256 = "b9863311bb0099aea359a6dbeb623bce8910e665ca86a2f609f1a4242219a2bb"
+# the full community's FASTQ, computed with the same generator on the CPU
+ARCTIC12_FASTQ_SHA256 = "d6a96821ddd735107a23b4cb83ee64ebd619551136cc657648ecc07d3334aa3c"
+
+
+# the kernels that the k = 21 33 runs of phases 3 and 4 go through (their
+# raw runs stay under the byte budget: no scan)
+K21_33_KERNELS = ("extract", "sort", "finalize", "compact", "join")
 
 
 def log(*a):
@@ -126,17 +149,64 @@ def asm_metrics(seqs):
                 largest_contig=lens[0] if lens else 0, n50=n50)
 
 
+def exact_substring_bases(seqs, gens, K: int = 24):
+    """Bases of the contigs that are exact substrings of a genome or its
+    reverse complement: each contig's first K-mer is looked up in a sorted
+    index of every K-mer of the genomes (numpy), and the candidates are
+    compared in full."""
+    import numpy as np
+
+    from mhm2_proxy_tpu_torch.io.gfa import revcomp_str
+
+    text = "$".join(gens + [revcomp_str(g) for g in gens]).encode()
+    arr = np.frombuffer(text, np.uint8)
+    lut = np.full(256, 4, np.uint8)
+    for i, c in enumerate(b"ACGT"):
+        lut[c] = i
+    codes = lut[arr].astype(np.uint64)
+    n = codes.size - K + 1
+    key = np.zeros(n, np.uint64)
+    bad = np.zeros(n, bool)
+    for j in range(K):
+        key = (key << np.uint64(2)) | (codes[j : j + n] & np.uint64(3))
+        bad |= codes[j : j + n] == 4
+    pos = np.nonzero(~bad)[0]
+    order = np.argsort(key[pos], kind="stable")
+    skey, spos = key[pos][order], pos[order]
+    match = 0
+    for sq in seqs:
+        b = sq.encode()
+        if len(b) < K:
+            match += len(b) if b in text else 0
+            continue
+        c = np.uint64(0)
+        for ch in lut[np.frombuffer(b[:K], np.uint8)]:
+            c = (c << np.uint64(2)) | np.uint64(ch & 3)
+        lo, hi = np.searchsorted(skey, c, "left"), np.searchsorted(skey, c, "right")
+        if any(text[p : p + len(b)] == b for p in spos[lo:hi]):
+            match += len(b)
+    return match
+
+
 def parse_run_log(path):
     """Per-k counting lines and [module] wall times from mhm2_torch.log."""
     rounds, modules = {}, {}
     pat = re.compile(r"k=(\d+): counted (\d+) kmers from (\d+) blocks in [\d.]+s "
                      r"\(raw rows (\d+), raw bytes (\d+), ctg-rule rows (\d+)\)")
+    lsm = re.compile(r"k=(\d+): split LSM collapses (\d+), cascade merges (\d+), deferrals "
+                     r"(\d+); ranged pieces read (\d+), ctg-rule (\d+); peak device memory "
+                     r"(\d+) bytes")
     for line in open(path):
         m = pat.search(line)
         if m:
             k, kmers, blocks, rows, nbytes, ctg = map(int, m.groups())
             rounds[k] = dict(kmers=kmers, blocks=blocks, raw_rows=rows, raw_bytes=nbytes,
                              ctg_rule_rows=ctg)
+        m = lsm.search(line)
+        if m:
+            k, *vals = map(int, m.groups())
+            rounds[k].update(zip(("collapses", "cascade_merges", "deferrals", "read_pieces",
+                                  "ctg_pieces", "peak_bytes"), vals))
         m = re.search(r"\[module\] (.+) ([\d.]+)s$", line.strip())
         if m:
             modules[m.group(1)] = float(m.group(2))
@@ -222,7 +292,7 @@ def sim_read_block(genome_codes, B, L, read_len, gen):
 def phase_kernels(results):
     import torch
 
-    from mhm2_proxy_tpu_torch.ops import compact, extract, finalize, join, lookup, sort
+    from mhm2_proxy_tpu_torch.ops import compact, count, extract, finalize, join, lookup, sort
     from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes, narrow
 
     gen = torch.Generator(device="cuda")
@@ -240,7 +310,8 @@ def phase_kernels(results):
     # extract: read blocks (131072, 128), packed, k = 21 and 33; contig
     # windows (2048, 2048) in the record layout
     for k, (B, L), packed in ((21, (131072, 128), True), (33, (131072, 128), True),
-                              (33, (2048, 2048), False)):
+                              (33, (2048, 2048), False), (63, (131072, 128), False),
+                              (77, (131072, 128), False)):
         codes = torch.randint(0, 5, (B, L), dtype=torch.uint8, device=dev, generator=gen)
         qual = torch.rand((B, L), device=dev, generator=gen) > 0.05
         lens = torch.randint(k - 2, L + 1, (B,), dtype=torch.int32, device=dev, generator=gen)
@@ -279,22 +350,40 @@ def phase_kernels(results):
         codes, qual, lens = sim_read_block(genome, 131072, 128, 100, gen)
         runs.append(lexsort_lanes(extract._extract(codes, qual, lens, 21, True)))
     merged = sort.merge_sorted_lanes(runs[0], runs[1], 2)
+    km = finalize._keymask(21, 2)
     for purge in (True, False):
-        kern = lambda: finalize._scan_purge_cuda(merged, finalize._keymask(21, 2), 2, purge)  # noqa: E731
-        plain = lambda: finalize._scan_purge_plain(merged, finalize._keymask(21, 2), 2, purge)  # noqa: E731
+        kern = lambda: finalize._scan_purge_cuda(merged, None, km, 2, purge)  # noqa: E731
+        plain = lambda: finalize._scan_purge_plain(merged, None, km, 2, purge)  # noqa: E731
         (kd, kf), (pd, pf) = kern(), plain()
         err = max(max_abs_err(kd, pd), max_abs_err((kf,), (pf,)))
         record("finalize", err, cuda_ms(kern), cuda_ms(plain),
                f"{merged[0].shape[0]} rows k=21 purge={purge}")
     del runs, merged
 
+    # finalize, separate payload (k = 77): two extracted read blocks in the
+    # record layout, key-sorted and merged on their 5 key lanes
+    runs = []
+    for _ in range(2):
+        codes, qual, lens = sim_read_block(genome, 131072, 128, 100, gen)
+        runs.append(count.block_to_raw_run_sep(codes, qual, lens, 77))
+    merged = sort.merge_sorted_lanes(runs[0], runs[1], 5)
+    keys, pay = merged[:5], merged[5]
+    for purge in (True, False):
+        kern = lambda: finalize._scan_purge_cuda(keys, pay, 0xFFFFFFFF, 2, purge)  # noqa: E731
+        plain = lambda: finalize._scan_purge_plain(keys, pay, 0xFFFFFFFF, 2, purge)  # noqa: E731
+        (kd, kf), (pd, pf) = kern(), plain()
+        err = max(max_abs_err(kd, pd), max_abs_err((kf,), (pf,)))
+        record("finalize", err, cuda_ms(kern), cuda_ms(plain),
+               f"{keys[0].shape[0]} rows k=77 separate payload purge={purge}")
+    del runs, merged, keys, pay
+
     # compact: 2-class at 36,700,160 rows, 3 lanes, emit class 0
     N = 36_700_160
     lanes = tuple(torch.randint(-2**31, 2**31, (N,), dtype=torch.int32, device=dev, generator=gen)
                   for _ in range(3))
     flags = (torch.rand((N,), device=dev, generator=gen) > 0.2).to(torch.int32)
-    kern = lambda: compact._compact_cuda(lanes, flags, 2, (0,))  # noqa: E731
-    plain = lambda: compact._compact_plain(lanes, flags, (0,))  # noqa: E731
+    kern = lambda: compact._compact_cuda(lanes, flags, 2, (0,), ((0, 1, 2),))  # noqa: E731
+    plain = lambda: compact._compact_plain(lanes, flags, (0,), ((0, 1, 2),))  # noqa: E731
     ((ko, kn),), ((po, pn),) = kern(), plain()
     n = int(pn)
     err = abs(int(kn) - n) + max_abs_err(tuple(x[:n] for x in ko), tuple(x[:n] for x in po))
@@ -329,6 +418,116 @@ def phase_kernels(results):
     check(n_hit <= hits < Q - n_sent, f"join: {hits} answers for {n_hit} hit queries")
     record("join", max_abs_err((ka,), (pa,)), cuda_ms(kern), cuda_ms(plain),
            f"{merged[0].shape[0]} merged rows ({T} table, {Q} queries) kw=2")
+    del merged, ka, pa, words, qw, keys
+    phase_join_separate(record, gen)
+    phase_collapse_kernels(record, genome, gen)
+    torch.cuda.empty_cache()
+
+
+def phase_join_separate(record, gen):
+    """The join's separate-lane variant at the full community's k = 21
+    edge-join shape (every round of it: tables trim to 2^25 rows): 2^25
+    table rows (1M of them sentinels), 2^26 queries (70% hits), a 6-bit
+    payload; and the whole table_join_payload around it."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import join, lookup
+    from mhm2_proxy_tpu_torch.ops.u32 import narrow
+
+    dev = "cuda"
+    T = 1 << 25
+    n_valid = T - 1_000_000
+    Q = 2 * T
+    keys = torch.unique(torch.randint(0, 1 << 42, (T + T // 8,), device=dev, generator=gen))[:T]
+    check(keys.shape[0] == T, "join: too few distinct table keys")
+    words = torch.stack([narrow(keys >> 10), narrow((keys & 0x3FF) << 22)], 1)
+    words[n_valid:] = -1
+    n_hit = Q * 7 // 10
+    qk = torch.cat([keys[torch.randint(0, n_valid, (n_hit,), device=dev, generator=gen)],
+                    torch.randint(0, 1 << 42, (Q - n_hit,), device=dev, generator=gen)])
+    qw = torch.stack([narrow(qk >> 10), narrow((qk & 0x3FF) << 22)], 1)
+    del keys, qk
+    payload = torch.randint(0, 64, (T,), device=dev, generator=gen)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    merged = lookup.merged_join_rows_sep(words, qw, payload)
+    kern = lambda: join._propagate_sep_cuda(merged, nv, 2, Q, 32)  # noqa: E731
+    plain = lambda: join._propagate_sep_plain(merged, nv, 2, Q, 32)  # noqa: E731
+    ka = kern()
+    err = max_abs_err((narrow(ka), narrow(ka >> 32)), (narrow(plain()), narrow(plain() >> 32)))
+    record("join", err, cuda_ms(kern), cuda_ms(plain),
+           f"{merged[0].shape[0]} merged rows ({T} table, {Q} queries) kw=2 separate lanes")
+    del merged, ka
+    run = lambda: lookup.table_join_payload(words, nv, qw, payload, payload_bits=6)  # noqa: E731
+    idx, found, pay = run()
+    hits = int(found.sum())
+    ok = bool((payload[idx[found].long()] == pay[found]).all()) and bool(
+        (words[idx[found].long()] == qw[found]).all())
+    check(n_hit <= hits < Q and ok, f"separate-lane join: {hits} answers for {n_hit} hits")
+    log(f"[join-sep] table_join_payload, {T} table rows, {Q} queries: {hits} found, "
+        f"{cuda_ms(run):.3f} ms (query lexsort + sort kernel merge + join kernel)")
+
+
+def phase_collapse_kernels(record, genome, gen):
+    """scan and the split's 3-class compaction at the k = 21 collapse shape
+    (16 extracted read blocks merged: ~163M packed rows, the raw budget of
+    an 80 GB card), and the lanes scan at the final fold's shape
+    (RANGED_FOLD_MIN_ROWS rows, nine lanes)."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.constants import MAX_KMER_COUNT
+    from mhm2_proxy_tpu_torch.kcount import KmerCountStore
+    from mhm2_proxy_tpu_torch.ops import compact, count, finalize, scan
+    from mhm2_proxy_tpu_torch.ops.u32 import ONES, rows_equal_next, u32
+
+    runs = []
+    for _ in range(16):
+        codes, qual, lens = sim_read_block(genome, 131072, 128, 100, gen)
+        run = count.block_to_raw_run(codes, qual, lens, 21)
+        n_valid = int((run[1] != -1).sum())
+        runs.append(tuple(x[:n_valid].clone() for x in run))
+        del run
+    merged = count.merge_raw_runs(runs)
+    N = merged[0].shape[0]
+    keymask = finalize._keymask(21, 2)
+    kern = lambda: scan._scan_packed_cuda(merged, keymask, MAX_KMER_COUNT)  # noqa: E731
+    plain = lambda: scan._scan_packed_plain(merged, keymask, MAX_KMER_COUNT)  # noqa: E731
+    p = kern()
+    record("scan", max_abs_err(p, plain()), cuda_ms(kern), cuda_ms(plain),
+           f"{N} rows k=21 packed (collapse)")
+
+    # the split's flags and lanes (count.split_from_sorted_packed)
+    skey = merged[1] & u32(keymask)
+    sent = (skey == u32(keymask)) & (merged[0] == ONES)
+    w = (merged[0], torch.where(sent, ONES, skey))
+    one = torch.ones((1,), dtype=torch.bool, device="cuda")
+    last = torch.cat([~rows_equal_next(w), one]) & ~sent
+    cnt = p[0] & 0xFFFF
+    flags = torch.where(last & (cnt >= 2), 0, torch.where(last & (cnt == 1), 1, 2)).to(torch.int32)
+    lanes = w + tuple(p)
+    sel = (tuple(range(7)), tuple(range(3)))
+    kern = lambda: compact._compact_cuda(lanes, flags, 3, (0, 1), sel)  # noqa: E731
+    plain = lambda: compact._compact_plain(lanes, flags, (0, 1), sel)  # noqa: E731
+    err = 0
+    for (ko, kn), (po, pn) in zip(kern(), plain()):
+        n = int(pn)
+        err = max(err, abs(int(kn) - n) + max_abs_err(tuple(x[:n] for x in ko),
+                                                      tuple(x[:n] for x in po)))
+    record("compact", err, cuda_ms(kern), cuda_ms(plain),
+           f"{N} rows 3-class split, emit_lanes 7/3 (k=21 collapse)")
+    del lanes, flags, w, skey, sent, last, cnt, p
+
+    # lanes scan at the final fold's shape: counts 1-300 on one-hot exts
+    M = KmerCountStore.RANGED_FOLD_MIN_ROWS
+    _keys, _sent, is_start, rows = scan.packed_rows(tuple(x[:M] for x in merged), keymask)
+    c = torch.randint(1, 301, (M,), device="cuda", generator=gen)
+    pays = tuple((x * c).to(torch.int32) for x in rows)
+    del rows, merged, _keys, _sent
+    kern = lambda: scan._scan_lanes_cuda(pays, is_start, MAX_KMER_COUNT)  # noqa: E731
+    plain = lambda: scan._scan_lanes_plain(pays, is_start, MAX_KMER_COUNT)  # noqa: E731
+    record("scan", max_abs_err(kern(), plain()), cuda_ms(kern), cuda_ms(plain),
+           f"{M} rows x 9 lanes (final fold)")
+    del pays, is_start, c
+    torch.cuda.empty_cache()
 
 
 def phase_devices():
@@ -342,7 +541,7 @@ def phase_devices():
 
     rng = np.random.default_rng(7)
     genome = rng.integers(0, 4, 20000).astype(np.uint8)
-    for k in (21, 33, 55, 99):
+    for k in (21, 33, 55, 63, 77, 99):
         t0 = time.perf_counter()
         blocks = []
         for _ in range(2):
@@ -374,6 +573,36 @@ def phase_devices():
         log(f"[devices] k={k}: {len(tc[0])} table rows, {len(cc)} contigs, "
             f"CUDA == CPU: {same} ({time.perf_counter() - t0:.1f} s)")
         check(same and len(tc[0]) > 0 and len(cc) > 0, f"k={k}: CUDA and CPU results differ")
+        for case in ("merge", "defer"):
+            table, stats = forced_split_store(k, "cuda", blocks, (c_codes, c_lens, c_deps), case)
+            w, c, l, r, n = table.to_numpy()
+            same = all(np.array_equal(x, y) for x, y in zip(tc, (w[:n], c[:n], l[:n], r[:n])))
+            log(f"[devices] k={k}: split LSM on CUDA, cascade {case}: {stats}, equals the "
+                f"CPU raw path: {same}")
+            check(same, f"k={k}: the split LSM ({case}) on CUDA differs from the raw path")
+
+
+def forced_split_store(k, device, blocks, ctg, case):
+    """A count store with every push collapsed into the split LSM, the
+    cascade merging (case "merge") or deferring ("defer") every push after
+    the first, and both folds run by key range over several pieces; returns
+    its final table and stats."""
+    from mhm2_proxy_tpu_torch.kcount import KmerCountStore
+
+    st = KmerCountStore(k, device=device, raw_budget_bytes=1)
+    st.cascade_max_rows = 1 << 62 if case == "merge" else 1
+    st.RANGED_FOLD_MIN_ROWS = 0
+    st.RANGED_FOLD_TARGET_ROWS = 4096
+    for blk in blocks:
+        st.add_reads_block(*blk)
+    st.add_ctgs_block(*ctg)
+    table = st.finalize()
+    s = st.stats
+    pushes = len(blocks) - 1
+    check(s["collapses"] == len(blocks) and s["read_pieces"] > 2 and s["ctg_pieces"] > 2
+          and s["cascade_merges" if case == "merge" else "cascade_deferrals"] == pushes,
+          f"k={k}: the forced split LSM ({case}) did not collapse, {case} and range: {s}")
+    return table, s
 
 
 # ---------------------------------------------------------------------------
@@ -381,16 +610,19 @@ def phase_devices():
 # ---------------------------------------------------------------------------
 
 
-def run_cli(fq, out_dir, ks):
+def run_cli(fq, out_dir, ks=None):
+    """The CLI on one FASTQ (`-k ks`, or the default ladder when ks is None);
+    returns its wall time and the launch counts of that run alone."""
+    import torch
+
     from mhm2_proxy_tpu_torch.main import main as cli_main
     from mhm2_proxy_tpu_torch.ops import kernels
 
     shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    rc = cli_main(["-r", fq, "-k", *map(str, ks), "-o", out_dir])
-    import torch
-
+    rc = cli_main(["-r", fq, "-o", out_dir] + (["-k", *map(str, ks)] if ks else []))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launches()
@@ -420,7 +652,7 @@ def phase_ci(work):
     for key, v in got.items():
         check(v == golden[key], f"{key}: {v} vs golden {golden[key]}")
     log(f"[ci] metrics {got} match ci/good-synth-sample-k2133.txt")
-    check(all(counts[k] > 0 for k in counts), counts)
+    check(all(counts[k] > 0 for k in K21_33_KERNELS), counts)
 
 
 def phase_real(work):
@@ -442,21 +674,133 @@ def phase_real(work):
     for name, secs in modules.items():
         log(f"[real] stage {name}: {secs:.2f} s")
     log(f"[real] wall {wall:.2f} s, launches {counts}")
-    check(all(counts[k] > 0 for k in counts), f"a kernel of the path never launched: {counts}")
+    check(all(counts[k] > 0 for k in K21_33_KERNELS),
+          f"a kernel of the path never launched: {counts}")
     fa = os.path.join(out, "final_assembly.fasta")
     seqs = read_fasta_seqs(fa)
-    from mhm2_proxy_tpu_torch.io.gfa import revcomp_str
-
-    gplus = "$".join(gens + [revcomp_str(g) for g in gens])
     tot = sum(map(len, seqs))
-    match = sum(len(s) for s in seqs if s in gplus)
+    match = exact_substring_bases(seqs, gens)
     frac = match / max(tot, 1)
     fdig = sha256(fa)
     log(f"[real] {asm_metrics(seqs)}; exact-substring bases {match}/{tot} = {frac:.4f}; "
         f"final_assembly.fasta sha256 {fdig}")
     check(tot > 0 and frac >= 0.95, frac)
     check(fdig == ARCTIC3_FASTA_SHA256, "final_assembly.fasta differs from the JAX package's")
-    return counts
+
+
+def phase_arctic(work):
+    """The full --arctic-scale community through the CLI, default k ladder."""
+    d = os.path.join(work, "arctic12")
+    t0 = time.perf_counter()
+    fq, gens, n_pairs = make_community(d, "arctic-scale", 12, 2_250_000, 0, 8.0, 100, 12, True)
+    digest = sha256(fq)
+    log(f"[arctic] {sum(map(len, gens))} bp in 12 genomes, {n_pairs} pairs ({2 * n_pairs} "
+        f"reads), fastq sha256 {digest}, generated in {time.perf_counter() - t0:.1f} s")
+    check(digest == ARCTIC12_FASTQ_SHA256, "arctic-scale FASTQ differs (numpy drift)")
+    out = os.path.join(work, "arctic12_run")
+    wall, counts = run_cli(fq, out)
+    rounds, modules = parse_run_log(os.path.join(out, "mhm2_torch.log"))
+    for k, r in sorted(rounds.items()):
+        log(f"[arctic] k={k}: {r['blocks']} blocks, raw rows {r['raw_rows']} (largest merged "
+            f"{r['raw_bytes'] / 1e9:.3f} GB), collapses {r['collapses']}, cascade merges "
+            f"{r['cascade_merges']}, deferrals {r['deferrals']}, ranged pieces read "
+            f"{r['read_pieces']} ctg-rule {r['ctg_pieces']}, ctg-rule rows "
+            f"{r['ctg_rule_rows']}, table rows {r['kmers']}, peak device memory "
+            f"{r['peak_bytes'] / 1e9:.2f} GB")
+    for name, secs in modules.items():
+        log(f"[arctic] stage {name}: {secs:.2f} s")
+    log(f"[arctic] wall {wall:.2f} s, launches {counts}")
+    check(sorted(rounds) == [21, 33, 55, 77, 99], f"rounds run: {sorted(rounds)}")
+    check(all(counts[k] > 0 for k in counts), f"a kernel of the path never launched: {counts}")
+    check(sum(r["collapses"] for r in rounds.values()) > 0, "no collapse into the split LSM")
+    check(sum(r["read_pieces"] for r in rounds.values()) > 0, "no ranged read fold")
+    check(sum(r["ctg_pieces"] for r in rounds.values()) > 0, "no ranged ctg-rule fold")
+    seqs = read_fasta_seqs(os.path.join(out, "final_assembly.fasta"))
+    tot = sum(map(len, seqs))
+    match = exact_substring_bases(seqs, gens)
+    frac = match / max(tot, 1)
+    log(f"[arctic] {asm_metrics(seqs)}; exact-substring bases {match}/{tot} = {frac:.4f}")
+    check(tot > 0 and frac >= 0.95, frac)
+    return fq, gens, counts
+
+
+def table_digest(table):
+    words, cnt, left, right, n = table.to_numpy()
+    h = hashlib.sha256()
+    for x in (words[:n], cnt[:n], left[:n], right[:n]):
+        h.update(x.tobytes())
+    return n, h.hexdigest()
+
+
+# the forced store of phase 6: the raw budget collapses every few blocks,
+# cascade merges of collapsed runs are deferred, and both folds run by range
+FORCED = dict(raw_budget_bytes=256 << 20, cascade_max_rows=20_000_000,
+              RANGED_FOLD_TARGET_ROWS=8_000_000)
+
+
+def phase_store_equality(fq, gens, device="cuda", forced=FORCED, block_reads=131072):
+    """k = 33 and 77 on the community's reads + contig windows of its genomes:
+    the store with the collapse, deferral and ranged folds forced equals the
+    raw-only path."""
+    import numpy as np
+    import torch
+
+    from mhm2_proxy_tpu_torch.constants import QUAL_CUTOFF
+    from mhm2_proxy_tpu_torch.kcount import KmerCountStore
+    from mhm2_proxy_tpu_torch.models.assembler import Assembler, AssemblerConfig
+    from mhm2_proxy_tpu_torch.ops.bitkmer import ascii_to_codes
+
+    t0 = time.perf_counter()
+    asm = Assembler(AssemblerConfig(device=device))
+    asm.load_reads([fq])
+    log(f"[store] loaded {len(asm.packed_reads)} reads in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(33)
+    seg = asm.CTG_MAX_SEG
+    for k in (33, 77):
+        # contig windows tiling every genome (k + 1 overlap), depths 1-60,
+        # one base changed in every 16th window (ext conflicts)
+        wins = [g[st : st + seg] for g in gens for st in range(0, len(g) - (k + 1), seg - (k + 1))]
+        codes = np.full((len(wins), seg), 4, np.uint8)
+        lens = np.array([len(w) for w in wins], np.int32)
+        for i, w in enumerate(wins):
+            codes[i, : len(w)] = ascii_to_codes(w.encode())
+        codes[::16, seg // 2] = (codes[::16, seg // 2] + 1) % 4
+        deps = rng.integers(1, 61, len(wins)).astype(np.int32)
+        got = {}
+        for name in ("forced", "raw-only"):
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            if name == "forced":
+                st = KmerCountStore(k, device=device, raw_budget_bytes=forced["raw_budget_bytes"])
+                st.cascade_max_rows = forced["cascade_max_rows"]
+                st.RANGED_FOLD_MIN_ROWS = 0
+                st.RANGED_FOLD_TARGET_ROWS = forced["RANGED_FOLD_TARGET_ROWS"]
+            else:
+                st = KmerCountStore(k, device=device, raw_budget_bytes=1 << 62)
+                st.RANGED_FOLD_MIN_ROWS = 1 << 62
+            q = asm.cfg.pad_len_quantum
+            L = max(((asm.packed_reads.max_read_len + q - 1) // q) * q, k + q)
+            for rc, rq, rl in asm.packed_reads.blocks(block_reads, pad_len=L, min_len=k):
+                st.add_reads_block(rc, rq >= asm.cfg.qual_offset + QUAL_CUTOFF, rl)
+            for s0 in range(0, len(wins), 2048):
+                st.add_ctgs_block(codes[s0 : s0 + 2048], lens[s0 : s0 + 2048],
+                                  deps[s0 : s0 + 2048])
+            resident = st.resident_run_bytes()
+            got[name] = table_digest(st.finalize())
+            stats = dict(st.stats)
+            peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else 0.0
+            log(f"[store] k={k} {name}: {got[name][0]} rows, digest {got[name][1][:16]}, "
+                f"{time.perf_counter() - t1:.1f} s, read runs resident before finalize "
+                f"{resident / 1e9:.2f} GB, peak device memory {peak:.2f} GB, stats {stats}")
+            if name == "forced":
+                check(stats["collapses"] > 1 and stats["cascade_deferrals"] > 0
+                      and stats["read_pieces"] > 2 and stats["ctg_pieces"] > 2,
+                      f"k={k}: the forced store did not collapse, defer and range: {stats}")
+            del st
+        check(got["forced"] == got["raw-only"] and got["forced"][0] > 0,
+              f"k={k}: forced split-LSM table differs from the raw-only table")
+        log(f"[store] k={k}: forced == raw-only")
 
 
 def main():
@@ -483,7 +827,9 @@ def main():
         phase_kernels(results)
         phase_devices()
         phase_ci(work)
-        counts = phase_real(work)
+        phase_real(work)
+        fq, gens, counts = phase_arctic(work)
+        phase_store_equality(fq, gens)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = []

@@ -1,6 +1,13 @@
 // join: answer propagation over a merged sort-join run, routed back to
 // query order.
 //
+// Two source layouts. Fused (mhm2_join): one u32 source lane, described
+// below. Separate lanes (mhm2_join_sep, for tables or query sets of 2^25
+// rows and more, or wide payloads: the reference's XLA branch,
+// mhm2_proxy_tpu/ops/lookup.py:144-247): a source lane of row idx with bit
+// 31 set on query rows, and a payload lane; a valid table row answers the
+// u64 (idx + 1) << 32 | payload. The walk is the same.
+//
 // Replaces mhm2_proxy_tpu/ops/pallas_join.py:157 `propagate_compact`
 // (kernel body `_kernel` :57) together with the two steps its caller runs
 // after it (mhm2_proxy_tpu/ops/lookup.py:127-137): the ragged_append of the
@@ -35,11 +42,40 @@ constexpr int kThreads = 256;
 constexpr uint32_t kQueryBit = 1u << 25;
 constexpr uint32_t kIdxMask = kQueryBit - 1u;
 
-__device__ __forceinline__ uint32_t answer(uint32_t src, uint32_t n_valid, int payload_bits) {
-  const uint32_t idx = src & kIdxMask;
-  if ((src & kQueryBit) || idx >= n_valid) return 0u;
-  return ((idx + 1u) << payload_bits) | (src >> 26);
-}
+// the fused source lane: table idx | payload << 26, or query idx | 1 << 25
+struct FusedSrc {
+  const uint32_t* src;
+  int payload_bits;
+  typedef uint32_t Answer;
+  __device__ __forceinline__ bool query(int64_t p, int64_t* dest) const {
+    const uint32_t s = src[p];
+    *dest = s & kIdxMask;
+    return (s & kQueryBit) != 0;
+  }
+  __device__ __forceinline__ Answer answer(int64_t p, uint32_t n_valid) const {
+    const uint32_t s = src[p];
+    const uint32_t idx = s & kIdxMask;
+    if ((s & kQueryBit) || idx >= n_valid) return 0u;
+    return ((idx + 1u) << payload_bits) | (s >> 26);
+  }
+};
+
+// separate lanes: row idx (bit 31 on query rows) and the table's payload
+struct SepSrc {
+  const uint32_t* src;
+  const uint32_t* pay;
+  typedef unsigned long long Answer;
+  __device__ __forceinline__ bool query(int64_t p, int64_t* dest) const {
+    const uint32_t s = src[p];
+    *dest = s & 0x7FFFFFFFu;
+    return (s >> 31) != 0;
+  }
+  __device__ __forceinline__ Answer answer(int64_t p, uint32_t n_valid) const {
+    const uint32_t s = src[p];
+    if ((s >> 31) || s >= n_valid) return 0ull;
+    return ((unsigned long long)(s + 1u) << 32) | pay[p];
+  }
+};
 
 template <int KW>
 __device__ __forceinline__ bool same_key(const CLanes& keys, int64_t q, const uint32_t* kp) {
@@ -49,36 +85,48 @@ __device__ __forceinline__ bool same_key(const CLanes& keys, int64_t q, const ui
   return true;
 }
 
-template <int KW>
-__global__ void join_kernel(CLanes keys, const uint32_t* __restrict__ src, int64_t M,
-                            const int32_t* __restrict__ n_valid_p, int payload_bits, int reach,
-                            uint32_t* __restrict__ ans, int64_t Q) {
+template <int KW, class Src>
+__global__ void join_kernel(CLanes keys, Src src, int64_t M, const int32_t* __restrict__ n_valid_p,
+                            int reach, typename Src::Answer* __restrict__ ans, int64_t Q) {
   const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (p >= M) return;
-  const uint32_t s = src[p];
-  if (!(s & kQueryBit)) return;
-  const int64_t dest = s & kIdxMask;
+  int64_t dest;
+  if (!src.query(p, &dest)) return;
   if (dest >= Q) return;  // query ids are arange(Q): never taken
   const uint32_t n_valid = (uint32_t)*n_valid_p;
   uint32_t kp[KW];
 #pragma unroll
   for (int l = 0; l < KW; ++l) kp[l] = keys.p[l][p];
-  uint32_t best = 0u;
+  typename Src::Answer best = 0;
   for (int d = 1; d <= reach && p - d >= 0; ++d) {
     if (!same_key<KW>(keys, p - d, kp)) break;
-    best = max(best, answer(src[p - d], n_valid, payload_bits));
+    const typename Src::Answer a = src.answer(p - d, n_valid);
+    best = a > best ? a : best;
   }
   for (int d = 1; d <= reach && p + d < M; ++d) {
     if (!same_key<KW>(keys, p + d, kp)) break;
-    best = max(best, answer(src[p + d], n_valid, payload_bits));
+    const typename Src::Answer a = src.answer(p + d, n_valid);
+    best = a > best ? a : best;
   }
   ans[dest] = best;
 }
 
-template <int KW>
-void launch(int64_t blocks, cudaStream_t s, const CLanes& k, const uint32_t* src, int64_t M,
-            const int32_t* nv, int pb, int reach, uint32_t* ans, int64_t Q) {
-  join_kernel<KW><<<(unsigned)blocks, kThreads, 0, s>>>(k, src, M, nv, pb, reach, ans, Q);
+template <class Src>
+int launch(int kw, int64_t M, cudaStream_t s, const CLanes& k, const Src& src, const int32_t* nv,
+           int reach, typename Src::Answer* ans, int64_t Q) {
+  const unsigned blocks = (unsigned)((M + kThreads - 1) / kThreads);
+  switch (kw) {
+    case 1: join_kernel<1, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    case 2: join_kernel<2, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    case 3: join_kernel<3, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    case 4: join_kernel<4, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    case 5: join_kernel<5, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    case 6: join_kernel<6, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    case 7: join_kernel<7, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    case 8: join_kernel<8, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -92,22 +140,20 @@ extern "C" int mhm2_join(const void* const* keys, int kw, const void* src, int64
   MHM2_REQUIRE(kw >= 1 && kw <= 8 && payload_bits >= 0 && payload_bits <= 6 && reach >= 0);
   MHM2_REQUIRE(M >= 0 && M < (1ll << 31) && Q >= 0 && Q <= (1ll << 25));
   if (M == 0) return (int)cudaGetLastError();
-  CLanes k = make_clanes(keys, kw);
-  const int64_t blocks = (M + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* sp = (const uint32_t*)src;
-  const int32_t* nv = (const int32_t*)n_valid;
-  uint32_t* a = (uint32_t*)ans;
-  switch (kw) {
-    case 1: launch<1>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    case 2: launch<2>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    case 3: launch<3>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    case 4: launch<4>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    case 5: launch<5>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    case 6: launch<6>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    case 7: launch<7>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    case 8: launch<8>(blocks, s, k, sp, M, nv, payload_bits, reach, a, Q); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch(kw, M, (cudaStream_t)stream, make_clanes(keys, kw),
+                FusedSrc{(const uint32_t*)src, payload_bits}, (const int32_t*)n_valid, reach,
+                (uint32_t*)ans, Q);
+}
+
+// The separate-lane layout: src (row idx, bit 31 on query rows) and pay
+// (the table rows' payload); ans: Q u64 answers (zero-filled by the caller).
+extern "C" int mhm2_join_sep(const void* const* keys, int kw, const void* src, const void* pay,
+                             int64_t M, const void* n_valid, int reach, void* ans, int64_t Q,
+                             void* stream) {
+  MHM2_REQUIRE(kw >= 1 && kw <= 8 && reach >= 0);
+  MHM2_REQUIRE(M >= 0 && M < (1ll << 31) && Q >= 0 && Q < (1ll << 31));
+  if (M == 0) return (int)cudaGetLastError();
+  return launch(kw, M, (cudaStream_t)stream, make_clanes(keys, kw),
+                SepSrc{(const uint32_t*)src, (const uint32_t*)pay}, (const int32_t*)n_valid,
+                reach, (unsigned long long*)ans, Q);
 }

@@ -1,16 +1,18 @@
-"""Single-device k-mer count store: the raw LSM (port of
-mhm2_proxy_tpu/kcount/kmer_store.py).
+"""Single-device k-mer count store: the raw LSM and, past its byte budget,
+the split LSM (port of mhm2_proxy_tpu/kcount/kmer_store.py).
 
-Read blocks stream in as ONE sorted packed run each (no per-block dedup);
+Read blocks stream in as ONE sorted raw run each (no per-block dedup);
 finalize merges the runs in a balanced tree and runs one finalize pass over
-the merged run (ops/count.py). Rounds after the first add contig k-mers:
+the merged run (ops/count.py). Past the byte budget the raw runs collapse
+into deduped split runs, and finalize folds those in one pass, by key range
+above RANGED_FOLD_MIN_ROWS rows. Rounds after the first add contig k-mers:
 per k-mer over all its contig occurrences a conflict (distinct (left,right)
 ext pairs) zeroes the count, otherwise count = min depth; a read-table entry
 survives only as a UU k-mer with count >= 2 (reference
 kcount_cpu.cpp:357-406, see mhm2_proxy_tpu/oracle/pyref.py).
 
 The port runs the raw LSM on every device; the reference picks it on the
-TPU only, and both of its LSMs produce the same table. Raw runs are stored
+TPU only, and all of its LSMs produce the same table. Raw runs are stored
 trimmed to their valid rows: a block's sentinel rows (invalid positions)
 carry nothing, and dropping them keeps the merge tree and the byte budget
 to the k-mers themselves.
@@ -120,64 +122,185 @@ def render_kmer_dump(words, count, left, right, k: int) -> bytes:
     return out.tobytes()
 
 
-class KmerCountStore:
-    """Accumulates k-mer count records for one k round on one device."""
+def _host_u32(x) -> np.ndarray:
+    """A device int32 lane (u32 bits) as a host uint32 array: unsigned order
+    for quantiles, searchsorted and comparisons."""
+    return x.cpu().numpy().view(np.uint32)
 
-    # the monolithic ctg-rule application handles up to this many rows;
-    # above it the reference folds by key range (not ported yet)
+
+def _range_cuts(w0_parts, target_rows: int):
+    """Key-range cuts of sorted runs: Q = ceil(rows / target_rows) (>= 2)
+    ranges split at quantile edges of every live word 0 (as uint32), and,
+    for each part, the row offsets of those edges (reference
+    kmer_store.py:476-495). Every key's rows land in one range."""
+    total = sum(len(w0) for w0 in w0_parts)
+    w0_all = np.concatenate(w0_parts) if total else np.zeros(1, np.uint32)
+    Q = max(2, -(-total // target_rows))
+    edges = np.quantile(w0_all, np.arange(1, Q) / Q).astype(np.uint64)
+    edges = np.minimum(edges, 0xFFFFFFFF).astype(np.uint32)
+    cuts = [np.concatenate([[0], np.searchsorted(w0, edges, "left"), [len(w0)]]).astype(np.int64)
+            for w0 in w0_parts]
+    return Q, cuts
+
+
+def _combine_pieces(pieces):
+    """Concatenate ranged-fold pieces (words + three payload arrays: a
+    FinalTable's count, left, right, or an aggregate's count, l4, r4), each
+    trimmed to its live rows and in key order: the reference's
+    concatenation + stable compaction (_combine_pieces_purged and
+    _combine_pieces_agg, kmer_store.py:155-178) in one."""
+    n = sum(p[0].shape[0] for p in pieces)
+    return tuple(torch.cat([p[i] for p in pieces]) for i in range(4)) + (
+        torch.tensor(n, dtype=torch.int32, device=pieces[0][0].device),
+    )
+
+
+class KmerCountStore:
+    """Accumulates k-mer count records for one k round on one device.
+
+    Read blocks stream in as raw runs (one sorted run per block, no
+    per-block dedup). Past raw_budget_bytes of raw runs the runs collapse
+    into ONE deduped split run (multi part + compact singleton part, the
+    GQF-filter analog, reference kcount-gpu/gqf.hpp:358-378) pushed to the
+    split LSM, whose cascade merges keep runs geometrically sized unless
+    the merged run would pass cascade_max_rows (then the runs wait as
+    siblings for finalize). finalize folds everything in one pass, by key
+    range when the rows pass RANGED_FOLD_MIN_ROWS.
+    """
+
+    # monolithic folds handle up to this many rows; above it the read fold
+    # and the ctg-rule fold run by key range (reference kmer_store.py:450-459)
     RANGED_FOLD_MIN_ROWS = 24_000_000
+    RANGED_FOLD_TARGET_ROWS = 6_000_000
 
     def __init__(self, k: int, dmin_thres: int = 2, device="cuda",
                  raw_budget_bytes: int | None = None):
+        from ..utils.memlog import get_free_device_mem_bytes
+
         self.k = k
         self.dmin_thres = dmin_thres
         self.device = torch.device(device)
         self.W = words32_for_k(k)
-        if not C.payload_fits_in_keys(k, self.W):
-            raise NotImplementedError(
-                f"k={k}: the separate-payload raw layout (k=63/77) is not ported "
-                "yet: ROADMAP queue 1 item 3"
-            )
+        self._raw_packed = C.payload_fits_in_keys(k, self.W)
+        # the reference's sizing (kmer_store.py:209-247), from the device's
+        # free memory: the collapse's transient is ~7x the raw bytes it
+        # folds, and a cascade merge of two collapsed runs holds ~2x the
+        # merged (W + 5)-lane rows
+        dev_free = get_free_device_mem_bytes(self.device)
         if raw_budget_bytes is None:
-            # the reference's sizing (kmer_store.py:216-227): a small fraction
-            # of free device memory, since past it the runs collapse
-            from ..utils.memlog import get_free_device_mem_bytes
-
-            dev_free = get_free_device_mem_bytes(self.device)
             raw_budget_bytes = (
                 min(2 << 30, max(128 << 20, dev_free // 64)) if dev_free else 2 << 30
             )
         self.raw_budget_bytes = raw_budget_bytes
-        self.raw_runs: list[tuple] = []  # sorted packed lanes per block
+        self.cascade_max_rows = (
+            max(2_000_000, dev_free // (4 * (self.W + 5) * 40)) if dev_free else 12_000_000
+        )
+        self.raw_runs: list[tuple] = []  # sorted raw lanes per block
+        # split runs: (m_words, m_count, m_l4, m_r4, n_m, s_words, s_ext, n_s)
+        self.runs: list[tuple] = []
         self.ctg_runs: list[tuple] = []
-        self.stats = dict(raw_rows=0, raw_bytes=0, blocks=0, ctg_rule_rows=0)
+        self.stats = dict(raw_rows=0, raw_bytes=0, blocks=0, ctg_rule_rows=0, collapses=0,
+                          cascade_merges=0, cascade_deferrals=0, read_pieces=0, ctg_pieces=0)
 
     # -- read pass ---------------------------------------------------------
 
     def add_reads_block(self, codes, qual_ok, lens):
         """Count one block of reads (numpy codes (B,L) u8, qual_ok (B,L) bool,
-        lens (B,) int32): ONE sorted packed run, trimmed to its valid rows
+        lens (B,) int32): ONE sorted raw run, trimmed to its valid rows
         (max(0, len-k-1) per read, known on the host)."""
         lens_np = np.asarray(lens, np.int32)
         n_valid = int(np.maximum(lens_np.astype(np.int64) - self.k - 1, 0).sum())
         dev = self.device
-        run = C.block_to_raw_run(
+        fn = C.block_to_raw_run if self._raw_packed else C.block_to_raw_run_sep
+        run = fn(
             torch.from_numpy(np.ascontiguousarray(codes)).to(dev),
             torch.from_numpy(np.ascontiguousarray(qual_ok)).to(dev),
             torch.from_numpy(lens_np).to(dev), self.k,
         )
         self.raw_runs.append(tuple(x[:n_valid].clone() for x in run))
+        del run
         self.stats["blocks"] += 1
         self.stats["raw_rows"] += n_valid
         if self._raw_bytes() > self.raw_budget_bytes:
-            raise NotImplementedError(
-                f"k={self.k}: raw runs of {self._raw_bytes()} bytes exceed the raw "
-                f"budget of {self.raw_budget_bytes} bytes; the collapse into the "
-                "split LSM is not ported yet: ROADMAP queue 1 item 9"
-            )
+            self._collapse_raw()
 
     def _raw_bytes(self) -> int:
         return sum(x.numel() * x.element_size() for run in self.raw_runs for x in run)
+
+    def _merged_raw(self):
+        """Merge (and release) the raw runs -> one sorted raw run (no rows
+        when no block came)."""
+        if not self.raw_runs:
+            n_lanes = -(-2 * self.k // 32) + (0 if self._raw_packed else 1)
+            return tuple(torch.empty((0,), dtype=torch.int32, device=self.device)
+                         for _ in range(n_lanes))
+        kw = None if self._raw_packed else len(self.raw_runs[0]) - 1
+        merged = C.merge_raw_runs(self.raw_runs, kw=kw)
+        self.stats["raw_bytes"] = max(self.stats["raw_bytes"], sum(x.numel() * 4 for x in merged))
+        return merged
+
+    # -- split-run LSM -----------------------------------------------------
+
+    @staticmethod
+    def _trim(run):
+        """Copy a split run's parts out to their live rows (at least one row:
+        a dead part keeps one all-ones row), releasing the full-size buffers."""
+        m_w, m_c, m_l4, m_r4, nm, s_w, s_e, ns = run
+        pm, ps = max(1, int(nm)), max(1, int(ns))
+        return (tuple(x[:pm].clone() for x in (m_w, m_c, m_l4, m_r4)) + (nm,)
+                + tuple(x[:ps].clone() for x in (s_w, s_e)) + (ns,))
+
+    @staticmethod
+    def _split_rows(run) -> int:
+        return run[0].shape[0] + run[5].shape[0]
+
+    def _merge_split(self, a, b):
+        run = C.merge_split4(
+            a[:4], C.expand_singles(a[5], a[6], a[7]),
+            b[:4], C.expand_singles(b[5], b[6], b[7]),
+        )
+        self.stats["cascade_merges"] += 1
+        return self._trim(run)
+
+    def _push_split_run(self, run):
+        """LSM push: merge the two newest runs while the newer is at least half
+        the older, unless their rows pass cascade_max_rows (deferred: they wait
+        as siblings for finalize's fold)."""
+        self.runs.append(run)
+        while len(self.runs) >= 2:
+            a_rows, b_rows = self._split_rows(self.runs[-2]), self._split_rows(self.runs[-1])
+            if b_rows < a_rows // 2:
+                break
+            if a_rows + b_rows > self.cascade_max_rows:
+                self.stats["cascade_deferrals"] += 1
+                break
+            b = self.runs.pop()
+            a = self.runs.pop()
+            self.runs.append(self._merge_split(a, b))
+            del a, b
+
+    def _collapse_raw(self, cascade: bool = True):
+        """Fold the outstanding raw runs into ONE deduped split run pushed to
+        the split LSM (the raw byte budget's overflow valve). cascade=False
+        appends without cascade merges: finalize's fold is about to merge
+        everything anyway."""
+        if not self.raw_runs:
+            return
+        merged = self._merged_raw()
+        split = C.split_from_sorted_packed if self._raw_packed else C.split_from_sorted_sep
+        run = self._trim(split(merged, self.k, self.W))
+        del merged
+        self.stats["collapses"] += 1
+        if cascade:
+            self._push_split_run(run)
+        else:
+            self.runs.append(run)
+
+    def resident_run_bytes(self) -> int:
+        """Device bytes held by the read-pass runs (memory observability)."""
+        return self._raw_bytes() + sum(
+            x.numel() * x.element_size() for run in self.runs for x in run
+        )
 
     # -- contig pass (rounds >= 2) ----------------------------------------
 
@@ -208,37 +331,86 @@ class KmerCountStore:
 
     # -- finalize ----------------------------------------------------------
 
+    def _final_fold_ranged(self, purge: bool):
+        """Range-partitioned final fold over the sorted split runs: every run
+        part is lexsorted, so cutting the key space at word-0 quantile edges
+        puts each key's rows in exactly one range; each range folds on its
+        own (final_fold_runs over plain slices of the live rows), and the
+        pieces, trimmed to their live rows, concatenate in key order."""
+        runs, self.runs = self.runs, []
+        w0_parts = []
+        for r in runs:
+            w0_parts.append(_host_u32(r[0][: int(r[4]), 0]))
+            w0_parts.append(_host_u32(r[5][: int(r[7]), 0]))
+        Q, cuts = _range_cuts(w0_parts, self.RANGED_FOLD_TARGET_ROWS)
+        pieces = []
+        for q in range(Q):
+            range_runs = []
+            for j, r in enumerate(runs):
+                m0, m1 = int(cuts[2 * j][q]), int(cuts[2 * j][q + 1])
+                s0, s1 = int(cuts[2 * j + 1][q]), int(cuts[2 * j + 1][q + 1])
+                range_runs.append(tuple(x[m0:m1] for x in r[:4]) + (m1 - m0,)
+                                  + tuple(x[s0:s1] for x in r[5:7]) + (s1 - s0,))
+            piece = C.final_fold_runs(range_runs, dmin_thres=self.dmin_thres, purge=purge)
+            n_live = int(piece[-1])
+            pieces.append(tuple(x[:n_live].clone() for x in piece[:4]))
+            del piece
+        self.stats["read_pieces"] += Q
+        del runs
+        return _combine_pieces(pieces)
+
     def _apply_ctg_rules_ranged(self, r, c):
-        """ctg-rule application + finalize; the reference's key-range
-        partitioned form above RANGED_FOLD_MIN_ROWS is not ported yet."""
-        total = int(r[4]) + int(c[4])
+        """ctg-rule application + finalize: monolithic up to
+        RANGED_FOLD_MIN_ROWS rows, above it by key range as in
+        _final_fold_ranged (reference kmer_store.py:536-580)."""
+        rn, cn = int(r[4]), int(c[4])
+        total = rn + cn
         self.stats["ctg_rule_rows"] = total
-        if total > self.RANGED_FOLD_MIN_ROWS:
-            raise NotImplementedError(
-                f"k={self.k}: {total} ctg-rule rows exceed RANGED_FOLD_MIN_ROWS; the "
-                "ranged ctg-rule fold is not ported yet: ROADMAP queue 1 item 9"
+        if total <= self.RANGED_FOLD_MIN_ROWS:
+            # the live rows only: the sentinel tails carry nothing
+            return _ctg_rules_finalize_piece(
+                tuple(x[: max(rn, 1)] for x in r[:4]) + (rn,),
+                tuple(x[: max(cn, 1)] for x in c[:4]) + (cn,), self.dmin_thres,
             )
-        merged = _apply_ctg_rules(*r, *c, self.dmin_thres)
-        return C.finalize_table(*merged, dmin_thres=self.dmin_thres)
+        Q, (rcut, ccut) = _range_cuts(
+            [_host_u32(r[0][:rn, 0]), _host_u32(c[0][:cn, 0])], self.RANGED_FOLD_TARGET_ROWS
+        )
+        pieces = []
+        for q in range(Q):
+            r0, r1, c0, c1 = int(rcut[q]), int(rcut[q + 1]), int(ccut[q]), int(ccut[q + 1])
+            piece = _ctg_rules_finalize_piece(
+                tuple(x[r0:r1] for x in r[:4]) + (r1 - r0,),
+                tuple(x[c0:c1] for x in c[:4]) + (c1 - c0,), self.dmin_thres,
+            )
+            n_live = int(piece[-1])
+            pieces.append(tuple(x[:n_live].clone() for x in piece[:4]))
+            del piece
+        self.stats["ctg_pieces"] += Q
+        return _combine_pieces(pieces)
 
     def finalize(self) -> FinalTable:
+        # the read side folds first, so its runs are released before the ctg
+        # merge cascade allocates (reference kmer_store.py:583-587)
         has_ctg = bool(self.ctg_runs)
-        weff = -(-2 * self.k // 32)
-        if self.raw_runs:
-            merged = C.merge_raw_runs(self.raw_runs)
+        if not self.runs:
+            merged = self._merged_raw()
+            final_fn = C.final_from_sorted_packed if self._raw_packed else C.final_from_sorted_sep
+            out = final_fn(merged, self.k, self.W, dmin_thres=self.dmin_thres,
+                           purge=not has_ctg)
+            del merged
         else:
-            merged = tuple(torch.empty((0,), dtype=torch.int32, device=self.device)
-                           for _ in range(weff))
-        self.raw_runs = []
-        self.stats["raw_bytes"] = sum(x.numel() * 4 for x in merged)
+            # mixed (a collapse happened): the raw remainder joins the split
+            # runs without a cascade merge, since the fold consumes every run
+            self._collapse_raw(cascade=False)
+            if sum(self._split_rows(r) for r in self.runs) > self.RANGED_FOLD_MIN_ROWS:
+                out = self._final_fold_ranged(purge=not has_ctg)
+            else:
+                runs, self.runs = self.runs, []
+                out = C.final_fold_runs(runs, dmin_thres=self.dmin_thres, purge=not has_ctg)
+                del runs
         if not has_ctg:
-            out = C.final_from_sorted_packed(merged, self.k, self.W,
-                                             dmin_thres=self.dmin_thres, purge=True)
             return FinalTable(self.k, *out)
-        agg = C.final_from_sorted_packed(merged, self.k, self.W,
-                                         dmin_thres=self.dmin_thres, purge=False)
-        del merged
-        return FinalTable(self.k, *self._apply_ctg_rules_ranged(agg, self._merged_ctgs()))
+        return FinalTable(self.k, *self._apply_ctg_rules_ranged(out, self._merged_ctgs()))
 
 
 def _push_run(runs, agg, merge_fn):
@@ -347,6 +519,13 @@ def _merge_ctg_aggregates(a_w, a_pmin, a_pmax, a_dmin, b_w, b_pmin, b_pmax, b_dm
     dmin = torch.where(same, torch.minimum(dmin, sh(dmin)), dmin)
     keep = is_last & ~_is_sentinel_row(w)
     return _ctg_compact(w, keep, _pack_ctg(pmin, pmax, dmin))
+
+
+def _ctg_rules_finalize_piece(r_sl, c_sl, dmin_thres: int):
+    """One key range's ctg-rule application + purge/finalize (see
+    KmerCountStore._apply_ctg_rules_ranged)."""
+    merged = _apply_ctg_rules(*r_sl, *c_sl, dmin_thres)
+    return C.finalize_table(*merged, dmin_thres=dmin_thres)
 
 
 def _apply_ctg_rules(r_words, r_count, r_l4, r_r4, r_n,

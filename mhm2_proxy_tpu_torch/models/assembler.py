@@ -240,6 +240,8 @@ class Assembler:
                 f"k={k}: estimated {est} kmer records (~{want>>20} MiB) vs "
                 f"{free>>20} MiB free; may run out of memory"
             )
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
         store = self._make_store(k)
         q = cfg.pad_len_quantum
         L = max(((self.packed_reads.max_read_len + q - 1) // q) * q, k + q)
@@ -286,9 +288,17 @@ class Assembler:
         )
         if tstats.get("stitch_timings"):
             self.log.info(f"k={k}: stitch {tstats['stitch_timings']}")
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
+        self.log.info(
+            f"k={k}: split LSM collapses {st['collapses']}, cascade merges "
+            f"{st['cascade_merges']}, deferrals {st['cascade_deferrals']}; ranged pieces "
+            f"read {st['read_pieces']}, ctg-rule {st['ctg_pieces']}; peak device memory "
+            f"{peak} bytes"
+        )
         self.round_stats[k] = dict(
             st, kmers=n_kmers, contigs=len(self.contigs), read_pass_s=t_reads,
-            count_s=t_count, traverse_s=t_trav,
+            count_s=t_count, traverse_s=t_trav, peak_bytes=peak,
         )
         if cfg.checkpoint:
             write_fasta(

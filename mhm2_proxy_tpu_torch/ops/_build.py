@@ -3,12 +3,13 @@
 nvcc compiles every source under csrc/ for sm_90a into
 `mhm2_proxy_tpu_torch/_build/<hash>/libmhm2_kernels.so`, keyed by a hash of
 the sources and flags, at the first kernel launch of a process; ctypes
-loads it. The sources have a plain C interface and include no PyTorch
-header, so a build takes seconds. A failed build raises: there is no
-fallback.
+loads it. One nvcc per source runs in parallel, then one links them. The
+sources have a plain C interface and include no PyTorch header, so a build
+takes seconds. A failed build raises: there is no fallback.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libmhm2_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o <name>.o csrc/<name>.cu           # each source, all at once
+    nvcc -shared -o libmhm2_kernels.so *.o
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -42,10 +43,13 @@ U32 = ctypes.c_uint32
 _SIGNATURES = {
     "mhm2_extract": [P, P, P, I64, I32, I32, I32, P, I32, P],
     "mhm2_merge": [P, I64, P, I64, P, I32, I32, I64, P, P],
-    "mhm2_finalize": [P, I32, I64, U32, I32, I32, P, P, P, P, P, P],
+    "mhm2_finalize": [P, I32, I32, I64, U32, I32, I32, P, P, P, P, P, P],
     "mhm2_compact_count": [P, I64, I32, P, P],
     "mhm2_compact_scatter": [P, P, I32, P, I64, I32, I32, P, P],
     "mhm2_join": [P, I32, P, I64, P, I32, I32, P, I64, P],
+    "mhm2_join_sep": [P, I32, P, P, I64, P, I32, P, I64, P],
+    "mhm2_scan_lanes": [P, I32, P, I64, I32, P, P, P, P, P],
+    "mhm2_scan_packed": [P, I32, I64, U32, I32, P, P, P, P, P],
 }
 
 
@@ -80,15 +84,34 @@ def load():
     so = out_dir / "libmhm2_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libmhm2_kernels.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *[str(f) for f in CSRC.glob("*.cu")]]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}) building {so}:\n{res.stderr[-4000:]}"
-            )
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.tmp"
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        log = []
+        failed = []
+        for cmd, _obj, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        tmp = out_dir / f"libmhm2_kernels.{tag}.so"
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _c, o, _p in jobs]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(res.stderr)
+        for _c, obj, _p in jobs:
+            obj.unlink(missing_ok=True)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed building {so}:\n{failed[0][-4000:]}")
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

@@ -1,15 +1,18 @@
-"""finalize: group sums + extension calls + purge over a merged sorted packed
+"""finalize: group sums + extension calls + purge over a merged sorted raw
 run (port of mhm2_proxy_tpu/ops/pallas_finalize.py).
 
-scan_purge(lanes, k, dmin_thres, purge) -> (data lanes, flags). For every
-row it gives the key lanes (payload bits cleared, sentinel rows all-ones)
+scan_purge(lanes, k, dmin_thres, purge, pay) -> (data lanes, flags). The
+run is packed (payload in the last key lane's free bits) or, with `pay`,
+key lanes plus a separate payload lane (k = 63, 77). For every row it gives
+the key lanes (payload bits cleared, packed sentinel rows all-ones)
 plus, from the row's inclusive group sums clamped at MAX_KMER_COUNT, either
 one packed (count | lcall<<16 | rcall<<24) lane (purge) or the five
 ops/count.py::_pack_sums lanes (no purge), and a class flag (0 = keep the
 row, 1 = drop). The compact kernel then gathers the kept rows. The CUDA
 kernel is csrc/finalize.cu; the plain version follows the reference's XLA
-branch of final_from_sorted_packed (count.py:1104-1137): one cumsum, minus
-its exclusive value at each row's group start, and elementwise calls.
+branches of final_from_sorted_packed and final_from_sorted_sep
+(count.py:1104-1137, 1186-1208): the group sums of ops/scan.py's plain
+version, and elementwise calls.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 
 from ..constants import EXT_F, EXT_X, MAX_KMER_COUNT
 from . import kernels
-from .u32 import ONES, narrow, rows_equal_next, widen
+from .scan import packed_rows, seg_sums_plain, sep_rows
+from .u32 import narrow
 
 
 def get_ext_calls(c4, count, dmin_thres: int):
@@ -46,68 +50,54 @@ def _keymask(k: int, weff: int) -> int:
     return 0xFFFFFFFF ^ ((1 << free) - 1)
 
 
-def scan_purge(sorted_lanes, k: int, dmin_thres: int = 2, purge: bool = True):
-    sorted_lanes = tuple(sorted_lanes)
-    keymask = _keymask(k, len(sorted_lanes))
-    if kernels.use_kernel(*sorted_lanes):
-        return _scan_purge_cuda(sorted_lanes, keymask, dmin_thres, purge)
-    return _scan_purge_plain(sorted_lanes, keymask, dmin_thres, purge)
+def scan_purge(sorted_lanes, k: int, dmin_thres: int = 2, purge: bool = True, pay=None):
+    """pay: None for the packed layout, else the separate payload lane
+    (count | left<<16 | right<<24, 0 on sentinel rows) of a key-sorted run
+    whose weff lanes are all key (k = 63, 77)."""
+    keys = tuple(sorted_lanes)
+    if pay is None:
+        keymask = _keymask(k, len(keys))
+    elif len(keys) != -(-2 * k // 32):
+        raise ValueError(f"finalize: k={k} has {-(-2 * k // 32)} key lanes, got {len(keys)}")
+    else:
+        keymask = 0xFFFFFFFF
+    if kernels.use_kernel(*keys, *(() if pay is None else (pay,))):
+        return _scan_purge_cuda(keys, pay, keymask, dmin_thres, purge)
+    return _scan_purge_plain(keys, pay, keymask, dmin_thres, purge)
 
 
-def _scan_purge_plain(lanes, keymask: int, dmin_thres: int, purge: bool):
-    N = lanes[0].shape[0]
-    dev = lanes[0].device
+def _scan_purge_plain(keys, pay, keymask: int, dmin_thres: int, purge: bool):
+    N = keys[0].shape[0]
+    dev = keys[0].device
     if N == 0:
         empty = torch.empty((0,), dtype=torch.int32, device=dev)
-        return (empty,) * (len(lanes) + (1 if purge else 5)), empty
-    slast = widen(lanes[-1])
-    skey = slast & keymask
-    sent = skey == keymask
-    for x in lanes[:-1]:
-        sent = sent & (x == ONES)
-    clean_last = torch.where(sent, 0xFFFFFFFF, skey)
-    neq = ~rows_equal_next(tuple(lanes[:-1]) + (skey,))
-    one = torch.ones((1,), dtype=torch.bool, device=dev)
-    is_start = torch.cat([one, neq])
-    is_last = torch.cat([neq, one])
-    cin = (~sent).to(torch.int64)
-    left = (slast >> 1) & 7
-    right = (slast >> 4) & 7
-    # (9, N): scans run along the innermost dimension (a CUDA cumsum over
-    # dim 0 of an (N, 9) tensor has 9-way parallelism)
-    pay = torch.stack(
-        [cin] + [(left == j) * cin for j in range(4)] + [(right == j) * cin for j in range(4)]
-    )
-    # inclusive group sums: the running sum minus its value before the
-    # row's group start (exact in int64, clamped afterwards)
-    cs = torch.cumsum(pay, 1)
-    gid = torch.cumsum(is_start.to(torch.int64), 0) - 1
-    start_excl = (cs - pay)[:, torch.nonzero(is_start).squeeze(1)][:, gid]
-    sums = torch.clamp(cs - start_excl, max=MAX_KMER_COUNT).T
-    count = sums[:, 0]
-    keys = tuple(lanes[:-1]) + (narrow(clean_last),)
+        return (empty,) * (len(keys) + (1 if purge else 5)), empty
+    if pay is None:
+        skeys, sent, is_start, rows = packed_rows(keys, keymask)
+        keys = tuple(keys[:-1]) + (narrow(torch.where(sent, 0xFFFFFFFF, skeys[-1])),)
+    else:
+        sent, is_start, rows = sep_rows(keys, pay)
+    is_last = torch.cat([is_start[1:], torch.ones((1,), dtype=torch.bool, device=dev)])
+    s = seg_sums_plain(rows, is_start, MAX_KMER_COUNT)
+    count = s[0]
     if purge:
-        lcall = get_ext_calls(sums[:, 1:5], count, dmin_thres).to(torch.int64)
-        rcall = get_ext_calls(sums[:, 5:9], count, dmin_thres).to(torch.int64)
+        lcall = get_ext_calls(torch.stack(s[1:5], 1), count, dmin_thres).to(torch.int64)
+        rcall = get_ext_calls(torch.stack(s[5:9], 1), count, dmin_thres).to(torch.int64)
         keep = is_last & ~sent & (count >= 2) & ~((lcall == EXT_X) & (rcall == EXT_X))
         data = keys + (narrow(count | (lcall << 16) | (rcall << 24)),)
     else:
         keep = is_last & ~sent
-        data = keys + (
-            narrow(count),
-            narrow(sums[:, 1] | (sums[:, 2] << 16)),
-            narrow(sums[:, 3] | (sums[:, 4] << 16)),
-            narrow(sums[:, 5] | (sums[:, 6] << 16)),
-            narrow(sums[:, 7] | (sums[:, 8] << 16)),
-        )
+        data = keys + (narrow(count),) + tuple(
+            narrow(s[i] | (s[i + 1] << 16)) for i in (1, 3, 5, 7))
     flags = torch.where(keep, 0, 1).to(torch.int32)
     return data, flags
 
 
-def _scan_purge_cuda(lanes, keymask: int, dmin_thres: int, purge: bool):
+def _scan_purge_cuda(keys, pay, keymask: int, dmin_thres: int, purge: bool):
+    lanes = keys + (() if pay is None else (pay,))
     for i, x in enumerate(lanes):
         kernels.require(x, torch.int32, f"finalize lane {i}")
-    weff = len(lanes)
+    weff = len(keys)
     n_out = weff + 1 if purge else weff + 5
     N = lanes[0].shape[0]
     dev = lanes[0].device
@@ -121,7 +111,8 @@ def _scan_purge_cuda(lanes, keymask: int, dmin_thres: int, purge: bool):
     agg_v = torch.empty((T * 9,), dtype=torch.int32, device=dev)
     carry = torch.empty((T * 9,), dtype=torch.int32, device=dev)
     rc = kernels.lib().mhm2_finalize(
-        kernels.ptrs(lanes), weff, N, keymask, dmin_thres, int(purge), kernels.ptrs(data),
+        kernels.ptrs(lanes), weff, int(pay is not None), N, keymask, dmin_thres, int(purge),
+        kernels.ptrs(data),
         flags.data_ptr(), agg_f.data_ptr(), agg_v.data_ptr(), carry.data_ptr(),
         kernels.stream(dev),
     )

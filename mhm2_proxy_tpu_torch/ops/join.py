@@ -11,6 +11,12 @@ reference's propagate_compact plus its ragged_append and destination sort
 (mhm2_proxy_tpu/ops/lookup.py:117-137). The CUDA kernel is csrc/join.cu
 (each query row walks its own run and stores its answer at its index); the
 plain version is the reference's doubling loop and one scatter.
+
+propagate_answers_sep is the same over the separate-lane layout that tables
+or query sets of 2^25 rows and more need (the reference's XLA branch,
+lookup.py:144-247): kw key lanes, a source lane (row idx, bit 31 on query
+rows) and a payload lane; a valid table row answers the int64
+(idx + 1) << 32 | payload.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from .u32 import narrow, widen
 QUERY_BIT = 1 << 25
 IDX_MASK = QUERY_BIT - 1
 MAX_PAYLOAD_BITS = 6  # (row | query flag | payload) in one u32
+SEP_QUERY_BIT = 1 << 31  # the separate-lane layout's query flag
 
 
 def reach(max_dup: int) -> int:
@@ -47,30 +54,57 @@ def propagate_answers(merged_lanes, n_valid, kw: int, payload_bits: int, n_queri
     return _propagate_plain(lanes, n_valid, kw, payload_bits, n_queries, max_dup)
 
 
-def _propagate_plain(lanes, n_valid, kw, payload_bits, n_queries, max_dup):
-    dev = lanes[0].device
-    src = widen(lanes[kw])
-    sq = (src & QUERY_BIT) != 0
-    ssrc = src & IDX_MASK
-    is_t = ~sq & (ssrc < n_valid)
-    prop = torch.where(is_t, ((ssrc + 1) << payload_bits) | (src >> 26), 0)
-    # spread the table answer across its equal-key run: sortedness makes
-    # key equality at distance s imply the run between, so doubling shifts
-    # in both directions cover reach(max_dup) rows each way
+def _spread(prop, key_lanes, max_dup: int):
+    """The reference's doubling shifts: each row takes the largest answer
+    within reach(max_dup) rows each way in its equal-key run (sortedness
+    makes key equality at distance s imply the run between)."""
     s = 1
     while s < max_dup and s < prop.shape[0]:
         same = None
-        for x in lanes[:kw]:
+        for x in key_lanes:
             e = x[s:] == x[:-s]
             same = e if same is None else (same & e)
-        miss = torch.zeros((s,), dtype=prop.dtype, device=dev)
+        miss = torch.zeros((s,), dtype=prop.dtype, device=prop.device)
         down = torch.cat([miss, torch.where(same, prop[:-s], 0)])
         up = torch.cat([torch.where(same, prop[s:], 0), miss])
         prop = torch.maximum(prop, torch.maximum(down, up))
         s *= 2
-    ans = torch.zeros((n_queries,), dtype=torch.int64, device=dev)
+    return prop
+
+
+def _propagate_plain(lanes, n_valid, kw, payload_bits, n_queries, max_dup):
+    src = widen(lanes[kw])
+    sq = (src & QUERY_BIT) != 0
+    ssrc = src & IDX_MASK
+    is_t = ~sq & (ssrc < n_valid)
+    prop = _spread(torch.where(is_t, ((ssrc + 1) << payload_bits) | (src >> 26), 0),
+                   lanes[:kw], max_dup)
+    ans = torch.zeros((n_queries,), dtype=torch.int64, device=src.device)
     ans[ssrc[sq]] = prop[sq]
     return narrow(ans)
+
+
+def propagate_answers_sep(merged_lanes, n_valid, kw: int, n_queries: int, max_dup: int = 32):
+    """(n_queries,) int64 answers (idx + 1) << 32 | payload in query order
+    (0: no valid table row with the query's key within reach)."""
+    lanes = tuple(merged_lanes)
+    if len(lanes) != kw + 2:
+        raise ValueError(f"join: {len(lanes)} lanes for kw={kw} + source + payload")
+    if kernels.use_kernel(*lanes):
+        return _propagate_sep_cuda(lanes, n_valid, kw, n_queries, max_dup)
+    return _propagate_sep_plain(lanes, n_valid, kw, n_queries, max_dup)
+
+
+def _propagate_sep_plain(lanes, n_valid, kw, n_queries, max_dup):
+    src = widen(lanes[kw])
+    sq = src >= SEP_QUERY_BIT
+    ssrc = src & (SEP_QUERY_BIT - 1)
+    is_t = ~sq & (ssrc < n_valid)
+    prop = _spread(torch.where(is_t, ((ssrc + 1) << 32) | widen(lanes[kw + 1]), 0),
+                   lanes[:kw], max_dup)
+    ans = torch.zeros((n_queries,), dtype=torch.int64, device=src.device)
+    ans[ssrc[sq]] = prop[sq]
+    return ans
 
 
 def _propagate_cuda(lanes, n_valid, kw, payload_bits, n_queries, max_dup):
@@ -87,6 +121,26 @@ def _propagate_cuda(lanes, n_valid, kw, payload_bits, n_queries, max_dup):
     rc = kernels.lib().mhm2_join(
         kernels.ptrs(lanes[:kw]), kw, lanes[kw].data_ptr(), M, nv.data_ptr(), payload_bits,
         reach(max_dup), ans.data_ptr(), n_queries, kernels.stream(dev),
+    )
+    kernels.check(rc, "join")
+    kernels.count_launch("join")
+    return ans
+
+
+def _propagate_sep_cuda(lanes, n_valid, kw, n_queries, max_dup):
+    for i, x in enumerate(lanes):
+        kernels.require(x, torch.int32, f"join lane {i}")
+    if kw > 8:
+        raise ValueError(f"join kernel takes <= 8 key lanes, got {kw}")
+    M = lanes[0].shape[0]
+    dev = lanes[0].device
+    nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev).reshape(1)
+    ans = torch.zeros((n_queries,), dtype=torch.int64, device=dev)
+    if M == 0:
+        return ans
+    rc = kernels.lib().mhm2_join_sep(
+        kernels.ptrs(lanes[:kw]), kw, lanes[kw].data_ptr(), lanes[kw + 1].data_ptr(), M,
+        nv.data_ptr(), reach(max_dup), ans.data_ptr(), n_queries, kernels.stream(dev),
     )
     kernels.check(rc, "join")
     kernels.count_launch("join")

@@ -1,9 +1,9 @@
 """Registry of the port's hand-written CUDA kernels.
 
 Each kernel's wrapper (ops/extract.py, sort.py, finalize.py, compact.py,
-join.py)
-launches the kernel for CUDA tensors and runs its plain PyTorch version for
-CPU tensors; nothing else chooses between them. There is no switch that
+join.py, scan.py) launches the kernel for CUDA tensors and runs its plain
+PyTorch version for CPU tensors; nothing else chooses between them. There
+is no switch that
 turns a kernel off and no fallback after a failed build or launch: both
 raise. Each wrapper adds one to its kernel's launch count where it launches
 the kernel, so a run can show that it went through the kernels.
@@ -27,6 +27,8 @@ KERNELS = {
                 "mhm2_proxy_tpu/ops/pallas_compact.py:115"),
     "join": ("mhm2_proxy_tpu_torch/csrc/join.cu",
              "mhm2_proxy_tpu/ops/pallas_join.py:157"),
+    "scan": ("mhm2_proxy_tpu_torch/csrc/scan.cu",
+             "mhm2_proxy_tpu/ops/pallas_scan.py:245"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

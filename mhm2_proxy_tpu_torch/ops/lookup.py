@@ -3,17 +3,26 @@ mhm2_proxy_tpu/ops/lookup.py, merge-join form).
 
 The table is always lexsorted (dense sorted prefix + sentinel tail), so only
 the queries are sorted; the two runs meet in the sort kernel's merge, and
-the join kernel (ops/join.py) gives every query the (idx+1) << payload_bits
-| payload answer of the table row with its key, in query order. This is the
-reference's fused merge-join path (mhm2_proxy_tpu/ops/lookup.py:85-143).
+every query gets the table row with its key, in query order.
+
+- Fused (max(T, Q) < 2^25 rows and payloads of <= 6 bits, the reference's
+  merge-join path, mhm2_proxy_tpu/ops/lookup.py:85-143): row id, query flag
+  and payload share one u32 lane, and the join kernel (ops/join.py) stores
+  each query's (idx+1) << payload_bits | payload answer at its index.
+- Separate lanes (larger tables or query sets, wider payloads; the
+  reference's XLA branch, lookup.py:144-247, which no Pallas kernel runs):
+  the merge carries a source lane (row id, bit 31 for queries) and a
+  payload lane, and the join kernel's separate-lane variant stores each
+  query's (idx+1) << 32 | payload answer at its index.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .join import IDX_MASK, MAX_PAYLOAD_BITS, QUERY_BIT, propagate_answers
-from .sort import merge_sorted_lanes_tiled
+from .join import (IDX_MASK, MAX_PAYLOAD_BITS, QUERY_BIT, SEP_QUERY_BIT, propagate_answers,
+                   propagate_answers_sep)
+from .sort import merge_sorted_lanes, merge_sorted_lanes_tiled
 from .u32 import lexsort_lanes, narrow, widen
 
 # (row | query flag | payload) must fit one u32: row ids need 25 bits
@@ -45,17 +54,38 @@ def table_join_payload(table_words, n_valid, query_words, payload,
     `_sort_join` in its merge-join form."""
     T, W = table_words.shape
     Q = query_words.shape[0]
-    fused = payload_bits <= MAX_PAYLOAD_BITS and max(T, Q) < _FUSED_MAX_ROWS
-    narrow_ok = (T + 1) * (1 << payload_bits) <= (1 << 32)
-    if not (fused and narrow_ok):
-        raise NotImplementedError(
-            f"sort-join with {T} table rows, {Q} queries and payload_bits="
-            f"{payload_bits} needs the separate-lane join, not ported yet: ROADMAP "
-            "queue 1 item 5"
-        )
-    out = merged_join_rows(table_words, query_words, payload)
-    ans = widen(propagate_answers(out, n_valid, W, payload_bits, Q, max_dup))
+    if payload_bits <= MAX_PAYLOAD_BITS and max(T, Q) < _FUSED_MAX_ROWS:
+        out = merged_join_rows(table_words, query_words, payload)
+        ans = widen(propagate_answers(out, n_valid, W, payload_bits, Q, max_dup))
+        shift = payload_bits
+    else:
+        ans = _join_separate_lanes(table_words, n_valid, query_words, payload, max_dup)
+        shift = 32
     found = ans > 0
-    idx = torch.clamp((ans >> payload_bits) - 1, 0, T - 1).to(torch.int32)
+    idx = torch.clamp((ans >> shift) - 1, 0, max(T - 1, 0)).to(torch.int32)
     pay = narrow(ans & ((1 << payload_bits) - 1))
     return idx, found, pay
+
+
+def merged_join_rows_sep(table_words, query_words, payload):
+    """The separate-lane merge: the table rows (key lanes + row idx + payload)
+    merged with the sorted query rows (key lanes + idx | bit 31 + 0): W + 2
+    lanes."""
+    T, W = table_words.shape
+    Q = query_words.shape[0]
+    dev = table_words.device
+    qsrc = narrow(torch.arange(Q, device=dev) | SEP_QUERY_BIT)
+    zeros = torch.zeros((Q,), dtype=torch.int32, device=dev)
+    qs = lexsort_lanes(tuple(query_words[:, w] for w in range(W)) + (qsrc, zeros), W)
+    a_lanes = tuple(table_words[:, w].contiguous() for w in range(W)) + (
+        torch.arange(T, dtype=torch.int32, device=dev), narrow(payload.to(torch.int64)),
+    )
+    return merge_sorted_lanes(a_lanes, qs, W)
+
+
+def _join_separate_lanes(table_words, n_valid, query_words, payload, max_dup: int):
+    """(Q,) int64 answers (idx + 1) << 32 | payload, 0 where no valid table
+    row has the query's key."""
+    out = merged_join_rows_sep(table_words, query_words, payload)
+    return propagate_answers_sep(out, n_valid, table_words.shape[1], query_words.shape[0],
+                                 max_dup)

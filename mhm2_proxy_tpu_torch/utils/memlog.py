@@ -23,7 +23,9 @@ def get_free_mem_bytes() -> int:
 
 
 def get_free_device_mem_bytes(device) -> int:
-    """Free bytes on `device` (a CUDA device), 0 for the CPU.
+    """Bytes on `device` (a CUDA device) not held by live tensors, 0 for the
+    CPU: the CUDA driver's free memory plus what PyTorch's caching allocator holds
+    unused, as the reference reads bytes_limit - bytes_in_use.
 
     The memory that bounds the counting pipeline on a GPU is device memory,
     not host RAM (the reference sizes its GPU hash table from device memory
@@ -32,7 +34,8 @@ def get_free_device_mem_bytes(device) -> int:
     if device.type != "cuda":
         return 0
     free, _total = torch.cuda.mem_get_info(device)
-    return int(free)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return int(free + cached)
 
 
 class MemoryTracker:

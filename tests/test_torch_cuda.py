@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from mhm2_proxy_tpu_torch.ops import compact, extract, finalize, join, kernels, sort
+from mhm2_proxy_tpu_torch.constants import MAX_KMER_COUNT
+from mhm2_proxy_tpu_torch.ops import compact, extract, finalize, join, kernels, scan, sort
 from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
 
 
@@ -47,8 +48,8 @@ def _same(got, want, rows=None):
         assert g.shape == w.shape and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("k", [21, 33, 55, 99])
-@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("k,packed", [(k, p) for k in (21, 33, 55, 99) for p in (True, False)]
+                         + [(63, False), (77, False)])
 def test_extract(cuda, k, packed):
     rng = np.random.default_rng(k + packed)
     for B, L in ((37, k + 45), (3, 2048)):
@@ -80,6 +81,8 @@ def _sorted_run(rng, n, n_lanes, kw, n_keys):
     (1023, 1025, 3, 3, 5000, 0),
     (3000, 7001, 2, 3, 4, 0),        # equal-key runs across many blocks
     (2500, 4100, 4, 5, 900, 1500),   # pad rows with a pad_fill value
+    (1000, 2072, 3, 8, 700, 0),      # W + 5 lanes (split sets), 3 whole blocks
+    (1536, 1536, 5, 6, 400, 0),      # key lanes + payload (k = 77 raw runs), 3 blocks
 ])
 def test_merge(cuda, na, nb, kw, n_lanes, n_keys, pad):
     rng = np.random.default_rng(na + nb + kw)
@@ -119,6 +122,98 @@ def test_finalize(cuda, k, purge):
         got = _launched("finalize", lambda: finalize.scan_purge(
             tuple(x.to(cuda) for x in lanes), k, purge=purge))
         _same(got[0] + (got[1],), want[0] + (want[1],))
+
+
+def _sep_run(rng, k, n, n_keys):
+    """A key-sorted separate-payload run: weff key lanes (a few distinct
+    keys), the payload lane count | left<<16 | right<<24 (count 1-3), and
+    a sentinel tail (all-ones keys, payload 0)."""
+    weff = -(-2 * k // 32)
+    keys = rng.integers(0, 1 << 32, (n_keys, weff), dtype=np.uint64).astype(np.uint32)
+    keys[: n_keys // 2, 0] |= np.uint32(0x80000000)
+    rows = keys[rng.integers(0, n_keys, n)]
+    pay = (rng.integers(1, 4, n) | (rng.integers(0, 6, n) << 16)
+           | (rng.integers(0, 6, n) << 24)).astype(np.uint32)
+    rows[n - n // 20 :] = 0xFFFFFFFF
+    pay[n - n // 20 :] = 0
+    return lexsort_lanes(tuple(_i32(rows[:, i]) for i in range(weff)) + (_i32(pay),), weff)
+
+
+@pytest.mark.parametrize("k", [63, 77])
+@pytest.mark.parametrize("purge", [True, False])
+def test_finalize_separate_payload(cuda, k, purge):
+    rng = np.random.default_rng(k * 3 + purge)
+    # 30000 rows of 2 keys at count 1-3: groups span ~15 blocks, past the clamp
+    for n, n_keys in ((1, 1), (3001, 300), (30001, 2)):
+        lanes = _sep_run(rng, k, n, n_keys)
+        want = finalize.scan_purge(lanes[:-1], k, purge=purge, pay=lanes[-1])
+        got = _launched("finalize", lambda: finalize.scan_purge(
+            tuple(x.to(cuda) for x in lanes[:-1]), k, purge=purge, pay=lanes[-1].to(cuda)))
+        _same(got[0] + (got[1],), want[0] + (want[1],))
+
+
+@pytest.mark.parametrize("n,p_start", [(1, 1.0), (1023, 0.3), (1025, 1.0), (70001, 0.0005),
+                                       (5000, 0.9)])
+def test_scan_lanes(cuda, n, p_start):
+    rng = np.random.default_rng(n)
+    is_start = torch.from_numpy(rng.random(n) < p_start)
+    pays = tuple(torch.from_numpy(rng.integers(0, 1 << v, n).astype(np.int32))
+                 for v in (0, 1, 3, 8, 12, 16, 20, 24, 30))
+    want = scan.group_sums_scan_lanes(pays, is_start, MAX_KMER_COUNT)
+    got = _launched("scan", lambda: scan.group_sums_scan_lanes(
+        tuple(x.to(cuda) for x in pays), is_start.to(cuda), MAX_KMER_COUNT))
+    _same(got, want)
+
+
+def test_scan_one_group_past_the_clamp(cuda):
+    """One group over ~100 blocks: the carry chain and the saturation (the
+    30-bit lane's exact sum passes 2^31 within the group)."""
+    n = 100_000
+    is_start = torch.zeros(n, dtype=torch.bool)
+    is_start[0] = True
+    pays = (torch.ones(n, dtype=torch.int32), torch.full((n,), 1 << 30, dtype=torch.int32))
+    want = scan.group_sums_scan_lanes(pays, is_start, MAX_KMER_COUNT)
+    got = _launched("scan", lambda: scan.group_sums_scan_lanes(
+        tuple(x.to(cuda) for x in pays), is_start.to(cuda), MAX_KMER_COUNT))
+    _same(got, want)
+    assert int(got[0][-1]) == MAX_KMER_COUNT
+
+
+@pytest.mark.parametrize("k", [21, 33, 55, 99])
+@pytest.mark.parametrize("n,n_keys", [(1, 1), (3001, 300), (70001, 2), (72000, 1)])
+def test_scan_packed(cuda, k, n, n_keys):
+    rng = np.random.default_rng(k + n)
+    lanes = _packed_run(rng, k, n, n_keys)
+    keymask = finalize._keymask(k, len(lanes))
+    want = scan.group_sums_scan_packed(lanes, keymask, MAX_KMER_COUNT)
+    got = _launched("scan", lambda: scan.group_sums_scan_packed(
+        tuple(x.to(cuda) for x in lanes), keymask, MAX_KMER_COUNT))
+    _same(got, want)
+
+
+def test_scan_empty(cuda):
+    before = kernels.launches()["scan"]
+    e = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    got = scan.group_sums_scan_lanes((e,) * 9, torch.zeros((0,), dtype=torch.bool, device=cuda),
+                                     MAX_KMER_COUNT)
+    got += scan.group_sums_scan_packed((e, e), 0xFFFFFC00, MAX_KMER_COUNT)
+    assert all(x.shape == (0,) for x in got) and kernels.launches()["scan"] == before
+
+
+@pytest.mark.parametrize("n", [1, 1024, 3000, 70001])
+def test_compact_emit_lanes(cuda, n):
+    """The split's 3-class compaction: multis write W + 5 lanes, singles W + 1."""
+    rng = np.random.default_rng(n + 7)
+    W = 4
+    lanes = tuple(_i32(rng.integers(0, 1 << 32, n, dtype=np.uint64)) for _ in range(W + 5))
+    flags = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))
+    sel = (tuple(range(W + 5)), tuple(range(W + 1)))
+    want = compact.compact_classes(lanes, flags, 3, (0, 1), sel)
+    got = _launched("compact", lambda: compact.compact_classes(
+        tuple(x.to(cuda) for x in lanes), flags.to(cuda), 3, (0, 1), sel))
+    for (gl, gn), (wl, wn), s in zip(got, want, sel):
+        assert int(gn) == int(wn) and len(gl) == len(s)
+        _same(gl, wl, rows=int(wn))
 
 
 @pytest.mark.parametrize("n", [1, 1000, 1025, 5000])
@@ -167,6 +262,33 @@ def test_join(cuda, n, kw, n_keys, max_dup, q_frac):
     _same((got,), (want,))
     hits = int((want != 0).sum())
     assert n < 1000 or (hits == 0 if max_dup == 1 else 0 < hits < n_q)
+
+
+@pytest.mark.parametrize("n,kw,n_keys,max_dup,q_frac", [
+    (1, 2, 1, 32, 0.6),
+    (3001, 2, 300, 32, 0.6),
+    (5000, 4, 40, 32, 0.99),  # runs of ~125 rows, few table rows: past the reach
+    (4097, 7, 2000, 129, 0.6),
+])
+def test_join_separate_lanes(cuda, n, kw, n_keys, max_dup, q_frac):
+    rng = np.random.default_rng(n + kw)
+    keys = rng.integers(0, 1 << 32, (n_keys, kw), dtype=np.uint64).astype(np.uint32)
+    keys[: n_keys // 2, 0] |= np.uint32(0x80000000)
+    rows = keys[rng.integers(0, n_keys, n)]
+    rows[n - n // 10 :] = 0xFFFFFFFF
+    is_q = rng.random(n) < q_frac
+    n_q = int(is_q.sum())
+    src = rng.integers(0, n + 1, n).astype(np.uint32)
+    src[is_q] = (rng.permutation(n_q) | join.SEP_QUERY_BIT).astype(np.uint32)
+    pay = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    lanes = lexsort_lanes(tuple(_i32(rows[:, i]) for i in range(kw)) + (_i32(src), _i32(pay)), kw)
+    n_valid = int(0.8 * n)
+    want = join.propagate_answers_sep(lanes, n_valid, kw, n_q, max_dup)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    got = _launched("join", lambda: join.propagate_answers_sep(
+        tuple(x.to(cuda) for x in lanes), nv, kw, n_q, max_dup))
+    _same((got,), (want,))
+    assert n < 1000 or 0 < int((want != 0).sum()) < n_q
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -16,7 +16,7 @@ def test_port_imports_no_jax():
         "import mhm2_proxy_tpu_torch, mhm2_proxy_tpu_torch.main\n"
         "from mhm2_proxy_tpu_torch import kcount, dbjg, models, io, utils, options\n"
         "from mhm2_proxy_tpu_torch.ops import (bitkmer, compact, count, extract, finalize,\n"
-        "    join, kernels, lookup, sort, u32, _build)\n"
+        "    join, kernels, lookup, scan, sort, u32, _build)\n"
         "from mhm2_proxy_tpu_torch.io import merge, native, gfa, stream\n"
         "from mhm2_proxy_tpu_torch.utils import memlog\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mhm2_proxy_tpu.')) or m == 'mhm2_proxy_tpu')\n"
@@ -31,7 +31,8 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_leave_launch_counts_at_zero():
-    from mhm2_proxy_tpu_torch.ops import compact, count, extract, finalize, kernels, lookup, sort
+    from mhm2_proxy_tpu_torch.ops import (compact, count, extract, finalize, kernels, lookup,
+                                          scan, sort)
 
     kernels.reset_launches()
     rng = np.random.default_rng(3)
@@ -43,10 +44,14 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     data, flags = finalize.scan_purge(merged, 21, purge=True)
     compact.compact_classes(data, flags, 2, (0,))
     extract.extract_record_lanes(codes, qual, lens, 21)
+    scan.group_sums_scan_packed(merged, finalize._keymask(21, 2), 0xFFFF)
+    scan.group_sums_scan_lanes(merged, torch.ones(merged[0].shape[0], dtype=torch.bool), 0xFFFF)
     words = torch.stack(merged, 1)
-    lookup.table_join_payload(words, 10, words, torch.zeros(words.shape[0], dtype=torch.int64),
-                              payload_bits=6)
-    assert kernels.launches() == {"extract": 0, "sort": 0, "finalize": 0, "compact": 0, "join": 0}
+    for bits in (6, 32):  # the fused and the separate-lane join
+        lookup.table_join_payload(words, 10, words, torch.zeros(words.shape[0], dtype=torch.int64),
+                                  payload_bits=bits)
+    assert kernels.launches() == {"extract": 0, "sort": 0, "finalize": 0, "compact": 0, "join": 0,
+                                  "scan": 0}
 
 
 def test_unported_paths_raise():
@@ -56,13 +61,12 @@ def test_unported_paths_raise():
     from mhm2_proxy_tpu_torch.main import run_pipeline
     from mhm2_proxy_tpu_torch.options import Options
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        KmerCountStore(63, device="cpu")
     for opt in (dict(restart=True), dict(shards=2), dict(profile=True),
                 dict(post_asm_align=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
             run_pipeline(Options(reads=["x.fastq"], device="cpu", **opt))
-    store = KmerCountStore(21, device="cpu", raw_budget_bytes=16)
-    codes = np.full((4, 64), 1, np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        store.add_reads_block(codes, np.ones((4, 64), bool), np.full(4, 64, np.int32))
+    # ported since: k = 63's separate payload and the collapse past the budget
+    store = KmerCountStore(63, device="cpu", raw_budget_bytes=16)
+    codes = np.full((4, 96), 1, np.uint8)
+    store.add_reads_block(codes, np.ones((4, 96), bool), np.full(4, 96, np.int32))
+    assert store.stats["collapses"] == 1 and int(store.finalize().n) == 1

@@ -89,3 +89,29 @@ def test_table_join_payload_equals_reference(T, Q, monkeypatch):
     assert np.array_equal(f1.numpy(), np.asarray(f0)) and f1.any() and not f1.all()
     assert np.array_equal(i1.numpy(), np.asarray(i0))
     assert np.array_equal(p1.numpy().view(np.uint32), np.asarray(p0))
+
+
+@pytest.mark.parametrize("T,Q,payload_bits,limit", [
+    (512, 3000, 6, 64),      # past the (patched) fused row limit: the arctic k=21 shape's path
+    (6000, 20000, 6, 8192),  # queries past the limit, table below it
+    (3000, 9000, 32, None),  # a payload too wide for the fused lane
+])
+def test_separate_lane_join_equals_reference(T, Q, payload_bits, limit, monkeypatch):
+    """The separate-lane join (max(T, Q) >= _FUSED_MAX_ROWS, or a wide
+    payload) against the reference's XLA branch, with _FUSED_MAX_ROWS
+    shrunk in both packages as tests/test_lookup.py:140-170 does."""
+    if limit is not None:
+        monkeypatch.setattr(RL, "_FUSED_MAX_ROWS", limit)
+        monkeypatch.setattr(PL, "_FUSED_MAX_ROWS", limit)
+    rng = np.random.default_rng(T + Q + payload_bits)
+    tw, qw, _ = _case(rng, T, Q, T - 30, heavy=0)
+    pay = rng.integers(0, 1 << payload_bits, T, dtype=np.uint64)
+    i0, f0, p0 = RL.table_join_payload.__wrapped__(
+        jnp.asarray(tw), jnp.int32(T - 30), jnp.asarray(qw), jnp.asarray(pay.astype(np.uint32)),
+        max_dup=32, payload_bits=payload_bits)
+    i1, f1, p1 = PL.table_join_payload(_t(tw), torch.tensor(T - 30, dtype=torch.int32), _t(qw),
+                                       torch.from_numpy(pay.astype(np.int64)),
+                                       payload_bits=payload_bits)
+    assert np.array_equal(f1.numpy(), np.asarray(f0)) and f1.any() and not f1.all()
+    assert np.array_equal(i1.numpy(), np.asarray(i0))
+    assert np.array_equal(p1.numpy().view(np.uint32), np.asarray(p0))
