@@ -1,37 +1,70 @@
 """Application entry point (port of mhm2_proxy_tpu/main.py; reference src/main.cpp).
 
 Option load, output-dir setup, config save, read merge + pack, per-k
-contigging rounds with checkpoint files, final assembly dump and stats, on
-one torch device (default cuda; no CPU fallback when CUDA is absent).
-Restarts, post-assembly alignment, --profile and sharded runs are not ported
-yet and stop with NotImplementedError naming their ROADMAP item.
+contigging rounds with checkpoint files, final assembly dump and stats, and
+the post-assembly alignment, on one torch device (default cuda; no CPU
+fallback when CUDA is absent). Restart semantics follow the reference
+(docs/mhm_guide.md:197-210): with --restart, the merged-reads checkpoint
+replaces the pair merge and rounds whose contigs-<k>.fasta checkpoint
+exists are skipped, their contigs reloaded; --contigs/--prev-kmer-len
+resume after an external contig checkpoint; --post-asm-only aligns the
+reads to the final_assembly.fasta already in the output directory.
+Sharded runs are not ported yet and stop with NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import sys
 import time
 
 import torch
 
-from .models.assembler import Assembler, AssemblerConfig
+from .io.fasta import read_fasta
+from .models.assembler import Assembler, AssemblerConfig, Contig
 from .options import Options, parse_args, setup_output_dir
 from .utils.logger import get_logger
 from .utils.memlog import MemoryTracker
 
 
 def _check_supported(opts: Options) -> None:
-    unported = [
-        (opts.restart or bool(opts.contigs), "restarts (--restart, --contigs)", 13),
-        (opts.post_asm_align or opts.post_asm_abundance or opts.post_asm_only,
-         "post-assembly (--post-asm-*)", 11),
-        (opts.profile, "--profile", 13),
-        (opts.shards > 0 or opts.hosts > 1, "sharded runs (--shards, --hosts)", 12),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(f"{what} not ported yet: ROADMAP queue 1 item {item}")
+    if opts.shards > 0 or opts.hosts > 1:
+        raise NotImplementedError(
+            "sharded runs (--shards, --hosts) not ported yet: ROADMAP queue 1 item 12")
+
+
+def load_checkpoint_contigs(fname: str) -> list[Contig]:
+    out = []
+    for name, seq in read_fasta(fname):
+        parts = name.split()
+        cid = int(parts[0].replace("Contig", "")) if parts else 0
+        depth = float(parts[1]) if len(parts) > 1 else 1.0
+        out.append(Contig(cid, seq, depth))
+    return out
+
+
+def _infer_contigs_k(fname: str) -> int:
+    """k of a contigs-<k>.fasta checkpoint filename; 0 if not inferable."""
+    m = re.search(r"contigs-(\d+)\.fasta(\.gz)?$", os.path.basename(fname))
+    return int(m.group(1)) if m else 0
+
+
+def _profiled_round(asm: Assembler, k: int, out_dir: str, log) -> None:
+    """One round under torch.profiler (host and, on CUDA, device activity);
+    the trace goes to <out_dir>/profile/trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if asm.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof_dir = os.path.join(out_dir, "profile")
+    os.makedirs(prof_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        asm.run_round(k)
+    prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+    log.info(f"[profile] trace written to {prof_dir}")
 
 
 def run_pipeline(opts: Options) -> Assembler:
@@ -62,22 +95,71 @@ def run_pipeline(opts: Options) -> Assembler:
     tracker.start()
     try:
         t0 = time.time()
-        asm.load_reads(list(opts.reads))
-        if opts.unpaired:
-            from .io.fastq import FastqReader
+        merged_ckpt = os.path.join(out_dir, "reads-merged.fastq.gz")
+        reloaded_merged = opts.restart and os.path.exists(merged_ckpt)
+        if reloaded_merged:
+            # the merged-reads checkpoint is already merged and holds any
+            # unpaired inputs: no re-merge (docs/mhm_guide.md:197-210)
+            asm.load_merged_reads(merged_ckpt)
+            log.info("[restart] reloaded merged reads checkpoint")
+        else:
+            asm.load_reads(list(opts.reads))
+            if opts.unpaired:
+                from .io.fastq import FastqReader
 
-            for fname in opts.unpaired:
-                r = FastqReader(fname)
-                asm.add_unpaired(r.seqs, r.quals)
+                for fname in opts.unpaired:
+                    r = FastqReader(fname)
+                    asm.add_unpaired(r.seqs, r.quals)
         log.info(f"[module] merge_reads {time.time() - t0:.2f}s")
-        if opts.checkpoint_merged:
-            asm.dump_merged_reads(os.path.join(out_dir, "reads-merged.fastq.gz"))
+        if opts.checkpoint_merged and not reloaded_merged:
+            asm.dump_merged_reads(merged_ckpt)
             log.info("[checkpoint] wrote reads-merged.fastq.gz")
-        for k in opts.kmer_lens:
+
+        if opts.post_asm_only:
+            # the existing final assembly, and only the post-assembly steps
+            # (docs/mhm_guide.md:226-233)
+            fa = os.path.join(out_dir, "final_assembly.fasta")
+            if not os.path.exists(fa):
+                raise FileNotFoundError(f"--post-asm-only needs {fa}")
+            asm.contigs = load_checkpoint_contigs(fa)
+            log.info(f"[post-asm-only] loaded {len(asm.contigs)} contigs from {fa}")
+        prev_k = 0
+        if opts.contigs and not opts.post_asm_only:
+            # an external contig checkpoint is the most recent round's
+            # output: rounds at or below its k are done
+            # (docs/mhm_guide.md:285-309)
+            asm.contigs = load_checkpoint_contigs(opts.contigs)
+            prev_k = opts.prev_kmer_len or _infer_contigs_k(opts.contigs)
+            if not prev_k:
+                raise ValueError(
+                    f"--contigs {opts.contigs}: cannot infer its k-mer round "
+                    "from the filename; pass --prev-kmer-len"
+                )
+            log.info(
+                f"[restart] loaded {len(asm.contigs)} contigs from {opts.contigs} "
+                f"(previous round k={prev_k}); resuming at the first k > {prev_k}"
+            )
+        profiled = False
+        for k in opts.kmer_lens if not opts.post_asm_only else []:
+            if prev_k and k <= prev_k:
+                log.info(f"[restart] skipping k={k} (<= --prev-kmer-len {prev_k})")
+                continue
+            ckpt = os.path.join(out_dir, f"contigs-{k}.fasta")
+            if opts.restart and os.path.exists(ckpt):
+                asm.contigs = load_checkpoint_contigs(ckpt)
+                log.info(f"[restart] skipping k={k}, loaded {len(asm.contigs)} contigs "
+                         f"from {ckpt}")
+                continue
             t0 = time.time()
-            asm.run_round(k)
+            if opts.profile and not profiled:
+                _profiled_round(asm, k, out_dir, log)
+                profiled = True
+            else:
+                asm.run_round(k)
             log.info(f"[module] contigging k={k} {time.time() - t0:.2f}s")
-        asm.dump_contigs(os.path.join(out_dir, "final_assembly.fasta"))
+
+        if not opts.post_asm_only:
+            asm.dump_contigs(os.path.join(out_dir, "final_assembly.fasta"))
         if opts.gfa:
             from .io.gfa import write_gfa2
 
@@ -88,6 +170,22 @@ def run_pipeline(opts: Options) -> Assembler:
                 max([opts.max_kmer_len] + list(opts.kmer_lens)),
             )
             log.info(f"[gfa] wrote final_assembly.gfa2 with {n_edges} edges")
+        if opts.post_asm_align or opts.post_asm_abundance:
+            from .models.post_asm import post_asm_align
+
+            t0 = time.time()
+            tm: dict = {}
+            post_asm_align(
+                asm,
+                sam_fname=os.path.join(out_dir, "final_assembly.sam")
+                if opts.post_asm_align else None,
+                abundance_fname=os.path.join(out_dir, "final_assembly_depths.tsv")
+                if opts.post_asm_abundance else None,
+                timings=tm,
+            )
+            log.info("post-asm-align timings: " + ", ".join(
+                f"{n} {v:.2f}s" for n, v in tm.items() if n.endswith("_s")))
+            log.info(f"[module] post_asm_align {time.time() - t0:.2f}s")
         asm.print_stats()
         log.info("Finished")
     finally:

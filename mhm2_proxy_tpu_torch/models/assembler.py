@@ -193,6 +193,28 @@ class Assembler:
         self._n_pairs = getattr(self, "_n_pairs", 0) + int(((l1 > 0) & (l2 > 0)).sum())
         self.log.debug(f"Merged {mi.size}/{(l1 > 0).sum()} pairs in block")
 
+    def load_merged_reads(self, fname: str):
+        """Reload a --checkpoint-merged FASTQ: the reads are already merged,
+        so ingest skips the pair merge (the reference's --restart consumes
+        *-merged.fastq the same way, docs/mhm_guide.md:197-210). Read ids
+        round-trip through the r<id>/<mate> names."""
+        from ..io.fastq import parse_rid_headers
+        from ..io.stream import stream_fastq_blocks
+
+        cfg = self.cfg
+        B = resolve_block_reads(cfg.block_reads, self.device)
+        hi_id = 0
+        for c, q, l, n, (hm, hl) in stream_fastq_blocks(
+            fname, B, pad_quantum=cfg.pad_len_quantum, qual_offset=cfg.qual_offset,
+            chunk_bytes=cfg.chunk_bytes, with_ids=True,
+        ):
+            ids = parse_rid_headers(hm[:n], hl[:n])
+            if ids.size:
+                hi_id = max(hi_id, int(np.abs(ids).max()))
+            self.packed_reads.add_block(c[:n], q[:n], l[:n], ids=ids)
+        self._next_read_id = hi_id  # continue past the reloaded block
+        self.log.info(f"Reloaded {len(self.packed_reads)} merged reads from {fname}")
+
     def dump_merged_reads(self, fname: str):
         """Write the merged/packed read set as FASTQ (reference
         --checkpoint-merged, merged fname convention utils.cpp:154-161).

@@ -1,0 +1,300 @@
+"""Post-assembly read-to-contig alignment (port of
+mhm2_proxy_tpu/models/post_asm.py; full-MHM2 --post-asm-align parity).
+
+Reads are anchored to contigs by multi-seed k-mer lookup in a sorted index
+of the contig k-mers, aligned with the batched Smith-Waterman kernel
+(ops/ssw.py), given CIGARs by the batched traceback DP, and summed into
+per-contig depths (the jgi_summarize-style table of docs/mhm_guide.md:
+211-233). The index build, seed lookup, vote, window gather, alignment and
+traceback run as tensors on the assembler's device; the SAM text and the
+depth sums are rendered on the host, with the reference's exact bytes.
+
+The reference builds the index with a Python loop per contig; here it is
+one batch over the concatenated contig codes, with every window that
+crosses a contig boundary dropped, then one stable lexsort (a k-mer that
+occurs several times keeps its (contig, offset) order, so a lookup returns
+the reference's first row).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import bitkmer as bk
+from ..ops.lookup import table_lookup
+from ..ops.ssw import sw_align, sw_cigar_batch
+from ..ops.u32 import lexsort_perm
+
+_ACGT = np.frombuffer(b"ACGTN", np.uint8)
+_SEED_FRACS = (0.5, 0.25, 0.75, 0.0, 1.0)  # by centrality: ties go to the middle
+
+
+def default_block_reads(device) -> int:
+    """Reads per alignment block: 2048 on the CPU (the reference's), 65536 on
+    CUDA, where the traceback codes (B x (Nr+1) x (Nq+1) bytes) of 100-190
+    bp reads stay near 1-2.4 GB. The outputs are per read: no block size
+    changes them."""
+    return 65536 if torch.device(device).type == "cuda" else 2048
+
+
+def build_contig_index(contigs: list[str], k: int = 31, device="cpu"):
+    """Sorted (canonical k-mer -> contig id, offset, orientation) rows over
+    every contig k-mer, plus the concatenated contig codes and their
+    starts and lengths for the window gather. Tensors on `device`; None
+    when no contig has k bases."""
+    dev = torch.device(device)
+    clen_h = np.array([len(s) for s in contigs], np.int64)
+    cstart_h = np.zeros(len(contigs) + 1, np.int64)
+    np.cumsum(clen_h, out=cstart_h[1:])
+    if not (clen_h >= k).any():
+        return None
+    concat = torch.from_numpy(bk.ascii_to_codes("".join(contigs).encode())).to(dev)
+    clen = torch.from_numpy(clen_h).to(dev)
+    cstart = torch.from_numpy(cstart_h).to(dev)
+    words = bk.kmer_words_from_codes(concat[None, :], k)[0]  # (N - k + 1, W)
+    P = words.shape[0]
+    cid = torch.repeat_interleave(torch.arange(len(contigs), device=dev), clen)[:P]
+    off = torch.arange(P, device=dev) - cstart[cid]
+    keep = off + k <= clen[cid]
+    cw, was_rc = bk.canonicalize_words(words[keep], k)
+    cid = cid[keep].to(torch.int32)
+    off = off[keep].to(torch.int32)
+    order = lexsort_perm(tuple(cw[:, w] for w in range(cw.shape[1])))
+    del words, keep
+    return dict(words=cw[order].contiguous(), cid=cid[order], off=off[order],
+                rc=was_rc[order], k=k, concat=concat, cstart=cstart, clen=clen)
+
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum along dim 1 (np.argmax's tie rule)."""
+    n = x.shape[1]
+    iota = torch.arange(n, device=x.device)[None, :]
+    return torch.where(x == x.max(dim=1, keepdim=True).values, iota, n).min(dim=1).values
+
+
+def align_reads_to_contigs(
+    codes: np.ndarray, lens: np.ndarray, contigs: list[str],
+    index=None, k: int = 31,
+    match=1, mismatch=1, gap_open=1, gap_extend=1,
+    cigars: bool = False, n_seeds: int = 5, timings: dict | None = None,
+):
+    """Anchor and align a block of reads against contigs (the reference's
+    multi-seed vote: n_seeds k-mer positions per read looked up in one
+    batch, voting on (contig, orientation, diagonal +- 16); the winning seed
+    anchors a window of L + 64 contig bases).
+
+    Returns numpy arrays per read: cid (-1 unanchored), score, identity,
+    begin/end spans, rev, win_lo (contig position = win_lo + r_begin), the
+    oriented codes, and with cigars=True the CIGARs and NM counts. The
+    index's device runs the work (the CPU when the index is built here).
+    timings, when given, accumulates the seconds of the seeding, windows
+    and alignment ("align_s") and of the CIGAR path (sw_cigar_batch's
+    "tb_dp_s", "tb_walk_s", "cigar_render_s")."""
+    if index is None:
+        index = build_contig_index(contigs, k)
+    if index is None:
+        B = codes.shape[0]
+        return dict(cid=np.full(B, -1, np.int32), score=np.zeros(B, np.int32),
+                    identity=np.zeros(B, np.float32))
+    t0 = time.perf_counter()
+    dev = index["words"].device
+    B, L = codes.shape
+    kk = index["k"]
+    codes_t = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
+    lens_t = torch.from_numpy(np.asarray(lens, np.int64)).to(dev)
+    words = bk.kmer_words_from_codes(codes_t, kk)
+    P = words.shape[1]
+    span = torch.clamp(lens_t - kk, min=0)
+    fracs = torch.tensor(_SEED_FRACS[:n_seeds], dtype=torch.float64, device=dev)
+    NS = fracs.shape[0]
+    posS = torch.clamp((span[:, None].to(torch.float64) * fracs[None, :]).to(torch.int64), 0, P - 1)
+    rb = torch.arange(B, device=dev)
+    anchors = words[rb[:, None], posS]  # (B, NS, W)
+    del words
+    cwS, q_rcS = bk.canonicalize_words(anchors.reshape(B * NS, -1), kk)
+    q_rcS = q_rcS.reshape(B, NS)
+    idxS, foundS = table_lookup(index["words"], index["words"].shape[0], cwS)
+    idxS = idxS.reshape(B, NS).to(torch.int64)
+    foundS = foundS.reshape(B, NS)
+    cidS = torch.where(foundS & (lens_t >= kk)[:, None], index["cid"][idxS].to(torch.int64), -1)
+    rel_rcS = (q_rcS ^ index["rc"][idxS]) & (cidS >= 0)
+    # oriented read position of each anchor and the implied contig diagonal
+    midS = torch.where(rel_rcS, span[:, None] - posS, posS)
+    diagS = index["off"][idxS].to(torch.int64) - midS
+    same = (
+        (cidS[:, :, None] == cidS[:, None, :])
+        & (rel_rcS[:, :, None] == rel_rcS[:, None, :])
+        & ((diagS[:, :, None] - diagS[:, None, :]).abs() <= 16)
+        & (cidS >= 0)[:, None, :]
+    )
+    votes = torch.where(cidS >= 0, same.sum(dim=-1), -1)
+    s_star = _first_argmax(votes)
+    cid = cidS[rb, s_star]
+    idx = idxS[rb, s_star]
+    rel_rc = rel_rcS[rb, s_star]
+    mid = midS[rb, s_star]
+    # reverse-complement the reads that anchor in reverse orientation
+    j = torch.arange(L, device=dev)[None, :]
+    codes_rc = torch.gather(codes_t, 1, torch.clamp(lens_t[:, None] - 1 - j, 0, L - 1))
+    codes_rc = torch.where(codes_rc < 4, 3 - codes_rc, codes_rc)
+    codes_rc = torch.where(j < lens_t[:, None], codes_rc, 4).to(torch.uint8)
+    codes_t = torch.where(rel_rc[:, None], codes_rc, codes_t).contiguous()
+    # the contig window around the anchor: one gather over the concatenation
+    Lr = L + 64
+    hit = cid >= 0
+    cid0 = torch.clamp(cid, min=0)
+    c_len = torch.where(hit, index["clen"][cid0], 0)
+    lo = torch.where(hit, torch.clamp(index["off"][idx].to(torch.int64) - mid - 32, min=0), 0)
+    gidx = (index["cstart"][cid0] + lo)[:, None] + torch.arange(Lr, device=dev)[None, :]
+    concat = index["concat"]
+    in_contig = (torch.arange(Lr, device=dev)[None, :] < (c_len - lo)[:, None]) & hit[:, None]
+    refs = torch.where(in_contig, concat[torch.clamp(gidx, 0, concat.shape[0] - 1)],
+                       255).to(torch.uint8)
+    r_len = torch.where(hit, torch.clamp(c_len - lo, max=Lr), 0).to(torch.int32)
+    q_len = lens_t.to(torch.int32)
+    aln = sw_align(codes_t, q_len, refs, r_len, match=match, mismatch=mismatch,
+                   gap_open=gap_open, gap_extend=gap_extend)
+    aln_h = {n: v.cpu().numpy() for n, v in aln.items()}
+    cid_h = cid.to(torch.int32).cpu().numpy()
+    score = aln_h["score"]
+    # identity proxy: score / (match * aligned query length)
+    qspan = np.maximum(aln_h["q_end"] - aln_h["q_begin"] + 1, 1)
+    identity = np.where(cid_h >= 0, score / (match * qspan), 0.0)
+    out = dict(cid=cid_h, score=score, identity=identity.astype(np.float32),
+               q_begin=aln_h["q_begin"], q_end=aln_h["q_end"],
+               r_begin=aln_h["r_begin"], r_end=aln_h["r_end"],
+               rev=rel_rc.cpu().numpy(), win_lo=lo.cpu().numpy(),
+               codes=codes_t.cpu().numpy())
+    if timings is not None:
+        timings["align_s"] = timings.get("align_s", 0.0) + time.perf_counter() - t0
+    if cigars:
+        aln_c = dict(aln, q_begin=torch.where(hit, aln["q_begin"], -1),
+                     q_end=torch.where(hit, aln["q_end"], -1))
+        out["cigar"], out["nm"] = sw_cigar_batch(
+            codes_t, q_len, refs, r_len, aln_c, match=match, mismatch=mismatch,
+            gap_open=gap_open, gap_extend=gap_extend, timings=timings,
+        )
+    return out
+
+
+def sam_block(names: list[str], out: dict, rows: np.ndarray, lens: np.ndarray,
+              cnames: list[str]) -> str:
+    """The SAM lines (v1.6 mandatory fields + NM and AS tags) of a block's
+    rows: the reference's sam_record (post_asm.py:177) for each row,
+    with the per-read numpy work done once per block. cnames maps the
+    aligner's dense contig index to the contig's name in the FASTA
+    (Contig<id>): a --post-asm-only run reloads only the printed contigs,
+    so the index is not the id there."""
+    n_l = lens[rows].tolist()
+    cid = out["cid"][rows].tolist()
+    if not rows.size:
+        return ""
+    L = out["codes"].shape[1]
+    seqs = _ACGT[np.minimum(out["codes"][rows], 4)].tobytes().decode()
+    flag = np.where(out["rev"][rows], 16, 0).tolist()
+    pos = (out["win_lo"][rows] + out["r_begin"][rows] + 1).tolist()
+    nm = out["nm"][rows].tolist()
+    score = out["score"][rows].tolist()
+    cig = out["cigar"]
+    lines = []
+    for t, i in enumerate(rows.tolist()):
+        n = n_l[t]
+        if cid[t] < 0 or n == 0:
+            lines.append(f"{names[t]}\t4\t*\t0\t0\t*\t*\t0\t0\t*\t*\n")
+            continue
+        lines.append(
+            f"{names[t]}\t{flag[t]}\t{cnames[cid[t]]}\t{pos[t]}\t60\t{cig[i]}"
+            f"\t*\t0\t0\t{seqs[t * L : t * L + n]}\t*\tNM:i:{nm[t]}\tAS:i:{score[t]}\n"
+        )
+    return "".join(lines)
+
+
+def post_asm_align(
+    asm, sample_reads: int | None = None, k: int = 31, block_reads: int | None = None,
+    sam_fname: str | None = None, abundance_fname: str | None = None,
+    timings: dict | None = None,
+):
+    """Align the packed reads back to the final contigs; optional SAM and
+    depths files (the reference's post_asm_align, post_asm.py:200-272).
+
+    sample_reads=None aligns every read. block_reads None takes
+    default_block_reads(asm.device). Returns the reference's summary stats;
+    timings, when given, receives the stage's seconds split into index
+    build ("index_s"), seeding and alignment ("align_s"), the traceback DP,
+    walk and CIGAR rendering ("tb_dp_s", "tb_walk_s", "cigar_render_s") and
+    host SAM and depth writing ("host_s"), and the reads aligned."""
+    contigs = [c.seq for c in asm.contigs]
+    cnames = [f"Contig{c.id}" for c in asm.contigs]
+    if not contigs:
+        return dict(aligned_frac=0.0, mean_identity=0.0)
+    dev = asm.device
+    block_reads = block_reads or default_block_reads(dev)
+    tm = timings if timings is not None else {}
+    t0 = time.perf_counter()
+    index = build_contig_index(contigs, k, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    tm["index_s"] = time.perf_counter() - t0
+    tm["host_s"] = 0.0
+    tot = 0
+    anchored = 0
+    ident_sum = 0.0
+    aligned_bases = np.zeros(len(contigs), np.int64)
+    sam = open(sam_fname, "w") if sam_fname else None
+    if sam:
+        sam.write("@HD\tVN:1.6\tSO:unknown\n")
+        for cname, c in zip(cnames, contigs):
+            sam.write(f"@SQ\tSN:{cname}\tLN:{len(c)}\n")
+        sam.write("@PG\tID:mhm2_proxy_tpu_torch\tPN:mhm2_proxy_tpu_torch\n")
+    rid = 0
+    for codes, _quals, lens, ids in asm.packed_reads.blocks(block_reads, min_len=k,
+                                                            with_ids=True):
+        out = align_reads_to_contigs(codes, lens, contigs, index=index, k=k,
+                                     cigars=sam is not None, timings=tm)
+        t1 = time.perf_counter()
+        mask = lens > 0
+        tot += int(mask.sum())
+        hit = (out["cid"] >= 0) & mask
+        anchored += int(hit.sum())
+        ident_sum += float(out["identity"][hit].sum())
+        span = np.where(hit, out["r_end"] - out["r_begin"] + 1, 0)
+        np.add.at(aligned_bases, np.clip(out["cid"], 0, None), span)
+        if sam:
+            rows = np.nonzero(mask)[0]
+            # the real read identity (packed_reads.cpp:74-75 convention);
+            # anonymous rows keep a positional name
+            rids = ids[rows].tolist()
+            names = [f"r{abs(r)}/{2 if r > 0 else 1}" if r else f"read_{rid + i}"
+                     for r, i in zip(rids, rows.tolist())]
+            sam.write(sam_block(names, out, rows, lens, cnames))
+        rid += int(codes.shape[0])
+        tm["host_s"] += time.perf_counter() - t1
+        if sample_reads is not None and tot >= sample_reads:
+            break
+    t1 = time.perf_counter()
+    if sam:
+        sam.close()
+    stats = dict(
+        aligned_frac=anchored / max(tot, 1),
+        mean_identity=ident_sum / max(anchored, 1),
+        sampled_reads=tot,
+    )
+    if abundance_fname:
+        with open(abundance_fname, "w") as f:
+            f.write("contigName\tcontigLen\ttotalAvgDepth\n")
+            for cidx, (cname, c) in enumerate(zip(cnames, contigs)):
+                depth = aligned_bases[cidx] / max(len(c), 1)
+                f.write(f"{cname}\t{len(c)}\t{depth:.4f}\n")
+        stats["abundance_file"] = abundance_fname
+    tm["host_s"] += time.perf_counter() - t1
+    tm["reads_aligned"] = anchored
+    asm.log.info(f"post-asm-align: {stats}")
+    return stats
+
+
+def post_asm_align_stats(asm, sample_reads: int = 2048, k: int = 31):
+    """Align a sample of the packed reads back to the final contigs."""
+    return post_asm_align(asm, sample_reads=sample_reads, k=k, block_reads=512)

@@ -14,6 +14,9 @@ every query gets the table row with its key, in query order.
   the merge carries a source lane (row id, bit 31 for queries) and a
   payload lane, and the join kernel's separate-lane variant stores each
   query's (idx+1) << 32 | payload answer at its index.
+
+table_lookup is the reference's lower-bound bisection (lookup.py:315-342),
+which XLA runs there: plain torch on the table's device.
 """
 
 from __future__ import annotations
@@ -89,3 +92,40 @@ def _join_separate_lanes(table_words, n_valid, query_words, payload, max_dup: in
     out = merged_join_rows_sep(table_words, query_words, payload)
     return propagate_answers_sep(out, n_valid, table_words.shape[1], query_words.shape[0],
                                  max_dup)
+
+
+def _lex_less_u32(a, b):
+    """(N,) bool: row a < row b over (N, W) int32 words read as u32."""
+    W = a.shape[1]
+    lt = widen(a[:, W - 1]) < widen(b[:, W - 1])
+    for w in range(W - 2, -1, -1):
+        aw, bw = widen(a[:, w]), widen(b[:, w])
+        lt = (aw < bw) | ((aw == bw) & lt)
+    return lt
+
+
+def table_lookup(table_words, n_valid, query_words):
+    """Lower-bound binary search of query rows in a lexsorted table prefix.
+
+    table_words (T, W) int32 (u32 bits) sorted rows, valid prefix length
+    n_valid; query_words (Q, W). Returns (idx (Q,) int32, found (Q,) bool):
+    idx is the first row of the query's key where found. The reference's
+    bit_length(T - 1) + 1 steps."""
+    T = table_words.shape[0]
+    Q = query_words.shape[0]
+    dev = query_words.device
+    if T == 0:
+        return (torch.zeros((Q,), dtype=torch.int32, device=dev),
+                torch.zeros((Q,), dtype=torch.bool, device=dev))
+    steps = max(1, (T - 1).bit_length() + 1) if T > 1 else 1
+    lo = torch.zeros((Q,), dtype=torch.int64, device=dev)
+    hi = torch.full((Q,), int(n_valid), dtype=torch.int64, device=dev)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        less = _lex_less_u32(table_words[torch.clamp(mid, 0, T - 1)], query_words)
+        active = lo < hi
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    idx = torch.clamp(lo, 0, T - 1)
+    found = (lo < int(n_valid)) & (table_words[idx] == query_words).all(dim=1)
+    return idx.to(torch.int32), found

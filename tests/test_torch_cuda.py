@@ -17,8 +17,10 @@ import pytest
 import torch
 
 from mhm2_proxy_tpu_torch.constants import MAX_KMER_COUNT
-from mhm2_proxy_tpu_torch.ops import compact, extract, finalize, join, kernels, scan, sort
+from mhm2_proxy_tpu_torch.ops import (compact, extract, finalize, join, kernels, lookup, scan,
+                                      sort, ssw)
 from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
+from torch_common import SCORINGS_ALL
 
 
 @pytest.fixture
@@ -300,3 +302,154 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         compact.compact_classes((torch.zeros((8, 2), dtype=torch.int32, device=cuda)[:, 0],), x, 2,
                                 (0,))
+
+
+def _ssw_pairs(rng, B, Lq, Lr, err=0.05):
+    """Queries cut from random refs with substitutions, ragged lengths (0
+    included), an all-ambiguous pair and pad bytes."""
+    ref = rng.integers(0, 4, (B, Lr)).astype(np.uint8)
+    q = np.full((B, Lq), 255, np.uint8)
+    off = rng.integers(0, max(Lr - Lq, 0) + 1, B)
+    for b in range(B):
+        seg = ref[b, off[b] : off[b] + Lq]
+        q[b, : seg.size] = seg
+    mut = rng.random((B, Lq)) < err
+    q[mut] = rng.integers(0, 5, int(mut.sum()))
+    ql = rng.integers(0, Lq + 1, B).astype(np.int32)
+    rl = rng.integers(0, Lr + 1, B).astype(np.int32)
+    ql[:3] = (0, Lq, Lq)
+    rl[:3] = (Lr, 0, Lr)
+    q[2] = 4  # all ambiguous
+    return tuple(map(torch.from_numpy, (q, ql, ref, rl)))
+
+
+def _ssw_same(cuda, args, scoring):
+    want = ssw.sw_align_ends(*args, **scoring)
+    got = _launched("ssw", lambda: ssw.sw_align_ends(*(x.to(cuda) for x in args), **scoring))
+    _same(got, want)
+    return want
+
+
+@pytest.mark.parametrize("scoring", SCORINGS_ALL)
+def test_ssw_ragged(cuda, scoring):
+    """B not a multiple of the 128-thread block; q_len or r_len 0; an
+    all-ambiguous pair; every scoring, go < ge included."""
+    rng = np.random.default_rng(scoring["gap_open"] * 7 + scoring["gap_extend"])
+    want = _ssw_same(cuda, _ssw_pairs(rng, 300, 100, 164), scoring)
+    assert int((want[0] > 0).sum()) > 200
+    assert want[0][:3].tolist() == [0, 0, 0] and want[1][:3].tolist() == [-1, -1, -1]
+
+
+def test_ssw_ties(cuda):
+    """Best scores that tie in several columns (a repeated ref) and in
+    several rows of one column (a repeated query base): the first column,
+    then the first row."""
+    pairs = [("ACGT", "ACGTACGTACGT"), ("AAAA", "A"), ("AAAA", "TTAT"), ("CA", "ACACAC")]
+    B = len(pairs)
+    q = np.full((B, 4), 255, np.uint8)
+    r = np.full((B, 12), 255, np.uint8)
+    for i, (a, b) in enumerate(pairs):
+        q[i, : len(a)] = ["ACGT".index(c) for c in a]
+        r[i, : len(b)] = ["ACGT".index(c) for c in b]
+    ql = np.array([len(a) for a, _ in pairs], np.int32)
+    rl = np.array([len(b) for _, b in pairs], np.int32)
+    args = tuple(map(torch.from_numpy, (q, ql, r, rl)))
+    for scoring in SCORINGS_ALL:
+        score, qe, re_ = _ssw_same(cuda, args, scoring)
+        assert qe.tolist()[:3] == [3, 0, 0] and re_.tolist()[:3] == [3, 0, 2]
+
+
+@pytest.mark.parametrize("B,Lq,Lr", [(257, 1, 40), (33, 1100, 4200)])
+def test_ssw_shapes(cuda, B, Lq, Lr):
+    """Lq = 1, and Lq = 1100 with Lr = 4200, past the TPU kernel's limits."""
+    rng = np.random.default_rng(Lq)
+    _ssw_same(cuda, _ssw_pairs(rng, B, Lq, Lr, err=0.02), SCORINGS_ALL[0])
+
+
+def test_sw_align_and_cigars(cuda):
+    """The full alignment (both passes) and the CIGAR path on CUDA equal the
+    CPU's."""
+    rng = np.random.default_rng(12)
+    args = _ssw_pairs(rng, 200, 120, 184)
+    for scoring in SCORINGS_ALL:
+        want = ssw.sw_align(*args, **scoring)
+        got = ssw.sw_align(*(x.to(cuda) for x in args), **scoring)
+        _same(tuple(got.values()), tuple(want.values()))
+        cw, mw = ssw.sw_cigar_batch(*args, want, **scoring)
+        cg, mg = ssw.sw_cigar_batch(*(x.to(cuda) for x in args), got, **scoring)
+        assert cg == cw and np.array_equal(mg, mw)
+
+
+def test_table_lookup(cuda):
+    rng = np.random.default_rng(8)
+    T, W = 5000, 2
+    keys = rng.integers(0, 1 << 32, (T, W), dtype=np.uint64).astype(np.uint32)
+    keys = keys[np.lexsort(tuple(keys[:, w] for w in range(W - 1, -1, -1)))]
+    keys[4500:] = 0xFFFFFFFF
+    q = np.concatenate([keys[rng.integers(0, T, 3000)],
+                        rng.integers(0, 1 << 32, (1000, W), dtype=np.uint64).astype(np.uint32)])
+    tw, qw = _i32(keys), _i32(q)
+    want = lookup.table_lookup(tw, 4500, qw)
+    got = lookup.table_lookup(tw.to(cuda), 4500, qw.to(cuda))
+    _same(got, want)
+
+
+def test_post_asm_block(cuda):
+    """A block of reads aligned to contigs on CUDA (index, lookup, vote,
+    windows, both passes, CIGARs) equals the CPU."""
+    from mhm2_proxy_tpu_torch.models import post_asm
+
+    rng = np.random.default_rng(3)
+    genome = "".join(rng.choice(list("ACGT"), 6000))
+    contigs = [genome[:2500], genome[2400:6000], genome[100:140]]
+    B, L = 500, 150
+    comp = str.maketrans("ACGT", "TGCA")
+    codes = np.full((B, L), 4, np.uint8)
+    lens = rng.integers(20, L + 1, B).astype(np.int32)
+    for b in range(B):
+        s = int(rng.integers(0, len(genome) - L))
+        read = genome[s : s + lens[b]]
+        if b % 2:
+            read = read.translate(comp)[::-1]
+        codes[b, : lens[b]] = ["ACGT".index(c) for c in read]
+    codes[rng.random((B, L)) < 0.01] = 1
+    out = {}
+    for dev in ("cpu", cuda):
+        idx = post_asm.build_contig_index(contigs, 31, device=dev)
+        out[str(dev)] = post_asm.align_reads_to_contigs(codes, lens, contigs, index=idx, k=31,
+                                                        cigars=True)
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert cpu.keys() == gpu.keys()
+    for name in cpu:
+        if name == "cigar":
+            assert cpu[name] == gpu[name]
+        else:
+            assert np.array_equal(cpu[name], gpu[name]), name
+    assert (cpu["cid"] >= 0).mean() > 0.8
+
+
+def test_cli_profile_and_restart(cuda, tmp_path):
+    """--profile (torch.profiler with CUDA activity) and --restart on the
+    card: the trace is written, and the restarted run writes the first
+    run's FASTA."""
+    import os
+
+    from mhm2_proxy_tpu_torch.io.fastq import write_fastq
+    from mhm2_proxy_tpu_torch.main import run_pipeline
+    from mhm2_proxy_tpu_torch.options import parse_args
+    from mhm2_proxy_tpu_torch.utils.synth import random_genome, simulate_reads
+
+    rng = np.random.default_rng(13)
+    ids, seqs, quals = simulate_reads(rng, random_genome(rng, 3000), coverage=20.0,
+                                      read_len=100, err_rate=0.002)
+    fq = str(tmp_path / "reads.fastq")
+    write_fastq(fq, ids, seqs, quals)
+    out = str(tmp_path / "run")
+    args = ["-r", fq, "-k", "21", "33", "-o", out, "--checkpoint"]
+    run_pipeline(parse_args(args + ["--profile"]))
+    assert os.path.getsize(f"{out}/profile/trace.json") > 0
+    final = open(f"{out}/final_assembly.fasta").read()
+    assert final.count(">") >= 1
+    os.remove(f"{out}/contigs-33.fasta")
+    run_pipeline(parse_args(args + ["--restart"]))
+    assert open(f"{out}/final_assembly.fasta").read() == final

@@ -15,8 +15,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import mhm2_proxy_tpu_torch, mhm2_proxy_tpu_torch.main\n"
         "from mhm2_proxy_tpu_torch import kcount, dbjg, models, io, utils, options\n"
+        "from mhm2_proxy_tpu_torch.models import assembler, post_asm\n"
         "from mhm2_proxy_tpu_torch.ops import (bitkmer, compact, count, extract, finalize,\n"
-        "    join, kernels, lookup, scan, sort, u32, _build)\n"
+        "    join, kernels, lookup, scan, sort, ssw, u32, _build)\n"
         "from mhm2_proxy_tpu_torch.io import merge, native, gfa, stream\n"
         "from mhm2_proxy_tpu_torch.utils import memlog\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mhm2_proxy_tpu.')) or m == 'mhm2_proxy_tpu')\n"
@@ -30,9 +31,25 @@ def test_port_imports_no_jax():
     assert "LEAKED []" in res.stdout
 
 
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py (which imports lazily, inside its phases) names neither
+    jax nor the JAX package in any import statement."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "mhm2_proxy_tpu"))
+    assert not bad and "mhm2_proxy_tpu_torch.models.post_asm" in names, bad
+
+
 def test_cpu_tensors_leave_launch_counts_at_zero():
     from mhm2_proxy_tpu_torch.ops import (compact, count, extract, finalize, kernels, lookup,
-                                          scan, sort)
+                                          scan, sort, ssw)
 
     kernels.reset_launches()
     rng = np.random.default_rng(3)
@@ -50,8 +67,10 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     for bits in (6, 32):  # the fused and the separate-lane join
         lookup.table_join_payload(words, 10, words, torch.zeros(words.shape[0], dtype=torch.int64),
                                   payload_bits=bits)
+    lens = torch.full((8,), 40, dtype=torch.int32)
+    ssw.sw_align(codes, lens, codes, lens)
     assert kernels.launches() == {"extract": 0, "sort": 0, "finalize": 0, "compact": 0, "join": 0,
-                                  "scan": 0}
+                                  "scan": 0, "ssw": 0}
 
 
 def test_unported_paths_raise():
@@ -61,9 +80,8 @@ def test_unported_paths_raise():
     from mhm2_proxy_tpu_torch.main import run_pipeline
     from mhm2_proxy_tpu_torch.options import Options
 
-    for opt in (dict(restart=True), dict(shards=2), dict(profile=True),
-                dict(post_asm_align=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    for opt in (dict(shards=2), dict(hosts=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
             run_pipeline(Options(reads=["x.fastq"], device="cpu", **opt))
     # ported since: k = 63's separate payload and the collapse past the budget
     store = KmerCountStore(63, device="cpu", raw_budget_bytes=16)
