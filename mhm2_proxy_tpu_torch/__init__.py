@@ -2,9 +2,10 @@
 
 Same pipeline as the JAX package beside it (FASTQ ingest -> pair merge ->
 raw-LSM k-mer counting -> de Bruijn traversal -> contigs) with the same
-outputs, on one NVIDIA GPU. Plain tensor code is PyTorch; every Pallas kernel
-on the single-device contigging path is a hand-written CUDA C++ kernel for
-Hopper (sm_90a) under csrc/, built at first use (ops/_build.py).
+outputs, on one NVIDIA GPU; `--shards S` runs the sharded path with all S
+shards on that device. Plain tensor code is PyTorch; every Pallas kernel of
+the JAX package is a hand-written CUDA C++ kernel for Hopper (sm_90a) under
+csrc/, built at first use (ops/_build.py).
 
 u32 data (k-mer words, packed payloads) is held in torch.int32 tensors with
 the reference's exact bit patterns, so kernels read uint32_t* over the same

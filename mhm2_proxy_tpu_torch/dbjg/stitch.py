@@ -57,11 +57,26 @@ def _render_contigs(starts, n_states, depth_sum, buf, src_off, words, k: int):
     oriented = np.where(s_fwd[:, None], kmers, rc)
     kpos = offsets[:-1, None] + np.arange(k)[None, :]
     cbuf[kpos.reshape(-1)] = oriented.reshape(-1)
-    del kpos, oriented, kmers, rc
+    del kpos, oriented, kmers, rc, pid, local, j
+    return canonical_contigs(cbuf, offsets, depth_sum, k)
 
-    rc_src = offsets[pid] + (clen[pid] - 1 - local)
+
+def canonical_contigs(cbuf, offsets, depth_sum, k: int):
+    """Contigs from the concatenated base codes of the paths (path p is
+    cbuf[offsets[p]:offsets[p+1]]): each in canonical orientation (the lesser
+    of it and its reverse complement, chosen at the first differing base by
+    one ragged permutation), with depth = depth_sum / (len - k + 2)
+    (dbjg_traversal.cpp:542)."""
+    n_paths = offsets.shape[0] - 1
+    if n_paths == 0:
+        return []
+    clen = np.diff(offsets)
+    total = int(offsets[-1])
+    j = np.arange(total, dtype=np.int64)
+    pid = np.repeat(np.arange(n_paths, dtype=np.int32), clen)
+    rc_src = offsets[pid] + (clen[pid] - 1 - (j - offsets[pid]))
     rc_buf = (3 - cbuf[rc_src]).astype(np.uint8)
-    del rc_src, local
+    del rc_src
     diff = cbuf != rc_buf
     big = total + 1
     first = np.minimum.reduceat(np.where(diff, j, big), offsets[:-1])

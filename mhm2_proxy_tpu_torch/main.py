@@ -9,8 +9,9 @@ replaces the pair merge and rounds whose contigs-<k>.fasta checkpoint
 exists are skipped, their contigs reloaded; --contigs/--prev-kmer-len
 resume after an external contig checkpoint; --post-asm-only aligns the
 reads to the final_assembly.fasta already in the output directory.
-Sharded runs are not ported yet and stop with NotImplementedError naming
-their ROADMAP item.
+--shards S counts and traverses over S shards on the one device; the
+multi-host layout (--hosts > 1) is not ported yet and stops with
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,9 +31,11 @@ from .utils.memlog import MemoryTracker
 
 
 def _check_supported(opts: Options) -> None:
-    if opts.shards > 0 or opts.hosts > 1:
+    if opts.hosts > 1:
         raise NotImplementedError(
-            "sharded runs (--shards, --hosts) not ported yet: ROADMAP queue 1 item 12")
+            "the multi-host layout (--hosts) is not ported yet: ROADMAP queue 1 item 12")
+    if opts.shards < 0:
+        raise ValueError(f"--shards must be >= 0, got {opts.shards}")
 
 
 def load_checkpoint_contigs(fname: str) -> list[Contig]:
@@ -89,6 +92,8 @@ def run_pipeline(opts: Options) -> Assembler:
         verbose=opts.verbose,
         dump_kmers=opts.dump_kmers,
         device=opts.device,
+        n_shards=opts.shards,
+        bucket_cap=opts.bucket_cap or None,
     )
     asm = Assembler(cfg)
     tracker = MemoryTracker(os.path.join(out_dir, "memory_tracker.log"))

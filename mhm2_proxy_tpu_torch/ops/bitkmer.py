@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..constants import words32_for_k
+from . import u64
 from .u32 import narrow, widen
 
 _M32 = 0xFFFFFFFF
@@ -154,6 +155,90 @@ def last_base(words: torch.Tensor, k: int) -> torch.Tensor:
     """Code of base k-1 as int64 (reference kmer.cpp:550-562)."""
     w, fld = (k - 1) // 16, (k - 1) % 16
     return (widen(words[..., w]) >> (2 * (15 - fld))) & 3
+
+
+# ---------------------------------------------------------------------------
+# minimizers: u64 values as int64 bit patterns (ops/u64.py)
+# ---------------------------------------------------------------------------
+
+
+def _rev2bits64(v: torch.Tensor) -> torch.Tensor:
+    """Reverse the 32 2-bit fields of each u64."""
+    v = ((v & 0x3333333333333333) << 2) | (u64.shr(v, 2) & 0x3333333333333333)
+    v = ((v & 0x0F0F0F0F0F0F0F0F) << 4) | (u64.shr(v, 4) & 0x0F0F0F0F0F0F0F0F)
+    v = ((v & 0x00FF00FF00FF00FF) << 8) | (u64.shr(v, 8) & 0x00FF00FF00FF00FF)
+    v = ((v & 0x0000FFFF0000FFFF) << 16) | (u64.shr(v, 16) & 0x0000FFFF0000FFFF)
+    return (v << 32) | u64.shr(v, 32)
+
+
+def revcomp_mmer(v: torch.Tensor, m: int) -> torch.Tensor:
+    """Reverse complement of top-aligned packed m-mers (reference
+    kmer.cpp:426-433)."""
+    return _rev2bits64(~v) << (2 * (32 - m))
+
+
+def _mmer_mask(m: int) -> int:
+    return u64.i64(((1 << (2 * m)) - 1) << (64 - 2 * m))
+
+
+def minimizers_from_codes(codes: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """(..., L) uint8 codes -> (..., P) int64 (u64 bits) minimizer of every
+    k-mer window, P = L-k+1: the greatest least-complement m-mer over the
+    window's k-m+1 candidates (reference kmer.cpp:344-403). Candidates pack
+    bases i..i+m-1 into the top 2m bits (N as G; bases past L are A); strand
+    symmetric, so the forward stream gives the canonical k-mer's minimizer."""
+    if not 1 <= m <= min(k, 28):
+        raise ValueError(f"minimizer length {m} for k={k}")
+    L = codes.shape[-1]
+    P = L - k + 1
+    n_cand = k - m + 1
+    total = P + n_cand - 1
+    c = codes.to(torch.int64)
+    c = torch.nn.functional.pad(torch.where(c >= 4, 2, c), (0, total + 47))
+    v = torch.zeros(codes.shape[:-1] + (total + 16,), dtype=torch.int64, device=codes.device)
+    for j in range(16):
+        v = (v << 2) | c[..., j : j + total + 16]
+    t = (v[..., :total] << 32) | v[..., 16 : 16 + total]  # 32 bases from i, top-aligned
+    cand = t & _mmer_mask(m)
+    x = u64.umin(cand, revcomp_mmer(cand, m))
+    # sliding-window max of width n_cand by dyadic doubling
+    width = 1
+    while width * 2 <= n_cand:
+        x = u64.umax(x[..., : x.shape[-1] - width], x[..., width:])
+        width *= 2
+    rem = n_cand - width
+    return u64.umax(x[..., :P], x[..., rem : rem + P])
+
+
+def quick_hash_u64(v: torch.Tensor) -> torch.Tensor:
+    """64-bit mix hash of u64 bits in int64 (reference hash_funcs.c:332-342)."""
+    v = v * 3935559000370003845 + 2691343689449507681
+    v = v ^ u64.shr(v, 21)
+    v = v ^ (v << 37)
+    v = v ^ u64.shr(v, 4)
+    v = v * 4768777513237032717
+    v = v ^ (v << 20)
+    v = v ^ u64.shr(v, 41)
+    return v ^ (v << 5)
+
+
+def minimizers_from_words(words: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """Minimizer of packed (..., W) int32 k-mer words, as int64 u64 bits (the
+    table-side form of minimizers_from_codes: candidates by funnel shifts)."""
+    w = widen(words)
+    w64 = (w[..., 0::2] << 32) | w[..., 1::2]
+    n64 = w64.shape[-1]
+    zm = _mmer_mask(m)
+    best = torch.zeros(words.shape[:-1], dtype=torch.int64, device=words.device)
+    for i in range(k - m + 1):
+        l, sh = i // 32, (i % 32) * 2
+        cur = w64[..., l]
+        if sh:
+            nxt = w64[..., l + 1] if l + 1 < n64 else torch.zeros_like(cur)
+            cur = (cur << sh) | u64.shr(nxt, 64 - sh)
+        cand = cur & zm
+        best = u64.umax(best, u64.umin(cand, revcomp_mmer(cand, m)))
+    return best
 
 
 # ---------------------------------------------------------------------------

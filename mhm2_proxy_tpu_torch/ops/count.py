@@ -14,6 +14,11 @@ compaction): a multi part (count >= 2, full sums) and a singleton part
 (merge_split4) and fold into the final table in one pass (final_fold_runs).
 Counts and extension sums clamp at the u16 ceiling at every merge and fold,
 which equals the reference's saturating accumulation (kcount_cpu.cpp:152-155).
+The sharded counter (parallel/sharded.py) takes each record's target shard
+from the minimizer kernel (read_kmer_records' `target`); its receivers
+aggregate raw records (aggregate_records: lexsort, scan, compact), split
+them (split_run) and merge split runs (merge_split4) and deduped runs
+(merge_aggregates: the sort kernel and a bounded dedup).
 
 u32 lanes are int32 tensors (ops/u32.py). Table words are (N, W) int32;
 group sums are tuples of nine (N,) int32 lanes (count, left one-hots 0-3,
@@ -24,17 +29,27 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import EXT_NONE, EXT_X, MAX_KMER_COUNT, words32_for_k
+from ..constants import EXT_NONE, EXT_X, MAX_KMER_COUNT, minimizer_len_for_k, words32_for_k
 from .compact import compact_classes
 from .extract import extract_packed_lanes, extract_record_lanes
 from .finalize import get_ext_calls as _get_ext_calls
 from .finalize import scan_purge
+from .minimizer import minimizer_targets
 from .scan import group_sums_scan_lanes, group_sums_scan_packed
 from .sort import merge_sorted_lanes
 from .u32 import ONES, lexsort_lanes, narrow, rows_equal_next, u32, widen
 
 
-def read_kmer_records(codes, qual_ok, lens, k: int, depth=None):
+def minimizer_shard_targets(codes, k: int, m: int, n_shards: int):
+    """(B, L) codes -> (B, P) int32 target shards, quick_hash(minimizer) %
+    n_shards (minimizer kernel); all zeros with no launch for one shard."""
+    if n_shards == 1:
+        B, L = codes.shape
+        return torch.zeros((B, L - k + 1), dtype=torch.int32, device=codes.device)
+    return minimizer_targets(codes, k, m, n_shards)
+
+
+def read_kmer_records(codes, qual_ok, lens, k: int, depth=None, n_shards: int = 1):
     """Count records of a block of sequences (reference process_seq +
     get_kmers_and_exts, kcount_cpu.cpp:84-101, 307-335), through the extract
     kernel's record layout.
@@ -42,7 +57,8 @@ def read_kmer_records(codes, qual_ok, lens, k: int, depth=None):
     codes (B, L) uint8, qual_ok (B, L) bool, lens (B,) int32, depth optional
     (B,) int32 per-sequence count (contig pass). Returns a dict of (B*P,)
     arrays: words (B*P, W) int32 (all-ones on invalid rows), left / right
-    uint8 ext codes (0 on invalid rows), count int32, valid bool."""
+    uint8 ext codes (0 on invalid rows), count int32, valid bool, target
+    int32 (the owner shard of each k-mer among n_shards, kmer_dht.cpp:193-196)."""
     lanes, pay = extract_record_lanes(codes, qual_ok, lens, k)
     B, L = codes.shape
     P = L - k + 1
@@ -52,7 +68,8 @@ def read_kmer_records(codes, qual_ok, lens, k: int, depth=None):
     if depth is not None:
         d = torch.clamp(depth.to(torch.int32), 0, MAX_KMER_COUNT)
         cnt = cnt * d[:, None].expand(B, P).reshape(-1)
-    return dict(words=words, left=left, right=right, count=cnt, valid=valid)
+    target = minimizer_shard_targets(codes, k, minimizer_len_for_k(k), n_shards).reshape(-1)
+    return dict(words=words, left=left, right=right, count=cnt, valid=valid, target=target)
 
 
 def _sentinelize(words, valid):
@@ -350,19 +367,35 @@ def _split_from_packed_sums(words, p, is_last, is_sent):
     return _split_emit(words, (p0, p1, p2, p3, p4), keep_m, keep_s)
 
 
-def _split_from_scanned(words, sums, is_last, is_sent):
-    """Compact scanned lexsorted rows straight into a split run: ONE 3-class
-    compaction (multi, single, dead). The singleton ext code rides the free
-    upper 16 bits of the count lane (singles have count 1)."""
-    cnt = sums[0]
-    keep_m = is_last & ~is_sent & (cnt >= 2)
-    keep_s = is_last & ~is_sent & (cnt == 1)
-    l4 = torch.stack(sums[1:5], dim=1)
-    r4 = torch.stack(sums[5:9], dim=1)
+def _split_live(words, cnt, l4, r4, live):
+    """Split the live rows by count: ONE 3-class compaction (multi, single,
+    dead). The singleton ext code rides the free upper 16 bits of the count
+    lane (singles have count 1)."""
+    keep_m = live & (cnt >= 2)
+    keep_s = live & (cnt == 1)
     ext = _ext_code_of(l4, keep_s).to(torch.int64) | (_ext_code_of(r4, keep_s).to(torch.int64) << 4)
     p0, p1, p2, p3, p4 = _pack_sums(cnt, l4, r4)
     p0 = p0 | torch.where(keep_s, ext << 16, 0).to(torch.int32)
     return _split_emit(words, (p0, p1, p2, p3, p4), keep_m, keep_s)
+
+
+def _split_from_scanned(words, sums, is_last, is_sent):
+    """Compact scanned lexsorted rows (group sums at group-last rows)
+    straight into a split run."""
+    return _split_live(words, sums[0], torch.stack(sums[1:5], dim=1),
+                       torch.stack(sums[5:9], dim=1), is_last & ~is_sent)
+
+
+def split_run(words, count, l4, r4, n_unique):
+    """Split a deduped run (its n_unique rows a lexsorted dense prefix) into
+    (multi, compact-singleton) parts."""
+    live = torch.arange(words.shape[0], device=words.device) < n_unique
+    return _split_live(words, count, l4, r4, live)
+
+
+def pow2_rows(n: int, floor: int = 256) -> int:
+    """Power-of-two row count to slice a run to (the sharded LSM's trim)."""
+    return max(floor, 1 << (max(int(n), 1) - 1).bit_length())
 
 
 def _raw_words(key_lanes, sent, W: int):
@@ -409,6 +442,49 @@ def _merge_sorted_sets(a, b):
     return (torch.stack(out[:W], dim=-1),) + _unpack_sums(*out[W:])
 
 
+def _dedup_keep(words, sums, is_last, is_sent):
+    """Compact the group-last rows' sums of lexsorted rows to a dense prefix:
+    (words, count, l4, r4, n_unique)."""
+    packed = _pack_sums(sums[0], torch.stack(sums[1:5], dim=1), torch.stack(sums[5:9], dim=1))
+    u_words, *pays, n_unique = _compact_keep(words, is_last & ~is_sent, packed)
+    return (u_words,) + _unpack_sums(*pays) + (n_unique,)
+
+
+def _dedup_sorted(words, count, l4, r4):
+    """Segment-reduce equal adjacent keys of lexsorted rows (scan kernel, then
+    compact kernel): unique rows in a dense prefix, sums clamped at the u16
+    ceiling (reference kcount_cpu.cpp:152-155). Returns (words, count, l4,
+    r4, n_unique) of the input's row count."""
+    return _dedup_keep(words, *_group_sums_scan(words, count, l4, r4))
+
+
+def _dedup_sorted_bounded(words, count, l4, r4, mult: int):
+    """_dedup_sorted for rows whose key multiplicity is at most `mult`
+    (merges of deduped runs): masked shift-adds instead of the scan."""
+    return _dedup_keep(words, *_group_sums_bounded(words, count, l4, r4, mult))
+
+
+def aggregate_records(words, left, right, count, valid):
+    """Raw count records -> a deduped sorted partial table (words, count,
+    l4, r4, n_unique): one stable lexsort of the words carrying the packed
+    count | left << 16 | right << 24 lane, the one-hots expanded after it,
+    then _dedup_sorted."""
+    w = _sentinelize(words, valid)
+    cnt = torch.where(valid, count, 0).to(torch.int32)
+    W = w.shape[1]
+    out = lexsort_lanes(_lanes(w) + (_pack_cnt_ext(cnt, left, right),), W)
+    cnt, left_s, right_s = _unpack_cnt_ext(out[W])
+    return _dedup_sorted(torch.stack(out[:W], dim=-1), cnt, _ext_onehot(left_s, cnt),
+                         _ext_onehot(right_s, cnt))
+
+
+def merge_aggregates(a_words, a_count, a_l4, a_r4, b_words, b_count, b_l4, b_r4):
+    """Merge two deduped partial tables (sort kernel + bounded dedup)."""
+    w, cnt, l4, r4 = _merge_sorted_sets((a_words, a_count, a_l4, a_r4),
+                                        (b_words, b_count, b_l4, b_r4))
+    return _dedup_sorted_bounded(w, cnt, l4, r4, mult=2)
+
+
 def merge_split4(a, b, c, d):
     """Merge four sorted deduped (words, count, l4, r4) sets straight into a
     split run (key multiplicity <= 4: bounded group sums)."""
@@ -432,12 +508,10 @@ def final_fold_runs(runs, dmin_thres: int = 2, purge: bool = True):
         leaves.append(expand_singles(r[5], r[6], r[7]))
     w, cnt, l4, r4 = _merge_tree(leaves, _merge_sorted_sets)
     sums, is_last, is_sent = _group_sums_scan(w, cnt, l4, r4)
+    if not purge:
+        return _dedup_keep(w, sums, is_last, is_sent)
     count = sums[0]
     l4, r4 = torch.stack(sums[1:5], dim=1), torch.stack(sums[5:9], dim=1)
-    if not purge:
-        keep = is_last & ~is_sent
-        u_words, *pays, n_unique = _compact_keep(w, keep, _pack_sums(count, l4, r4))
-        return (u_words,) + _unpack_sums(*pays) + (n_unique,)
     left = _get_ext_calls(l4, count, dmin_thres)
     right = _get_ext_calls(r4, count, dmin_thres)
     keep = is_last & ~is_sent & (count >= 2) & ~((left == EXT_X) & (right == EXT_X))

@@ -1,7 +1,7 @@
 """Registry of the port's hand-written CUDA kernels.
 
 Each kernel's wrapper (ops/extract.py, sort.py, finalize.py, compact.py,
-join.py, scan.py, ssw.py) launches the kernel for CUDA tensors and runs its plain
+join.py, scan.py, ssw.py, minimizer.py) launches the kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; nothing else chooses between them. There
 is no switch that
 turns a kernel off and no fallback after a failed build or launch: both
@@ -31,6 +31,8 @@ KERNELS = {
              "mhm2_proxy_tpu/ops/pallas_scan.py:245"),
     "ssw": ("mhm2_proxy_tpu_torch/csrc/ssw.cu",
             "mhm2_proxy_tpu/ops/pallas_ssw.py:108"),
+    "minimizer": ("mhm2_proxy_tpu_torch/csrc/minimizer.cu",
+                  "mhm2_proxy_tpu/ops/pallas_minimizer.py:179"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

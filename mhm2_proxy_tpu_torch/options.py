@@ -111,10 +111,12 @@ def parse_args(argv=None) -> Options:
                         "volume. Raise it if skew warnings report spill "
                         "rounds (analog of --max-kmer-store, options.cpp)")
     p.add_argument("--shards", type=int, default=0,
-                   help=">0: shard counting/traversal over this many devices")
+                   help=">0: shard counting/traversal over this many shards, "
+                        "all on the run's one device")
     p.add_argument("--hosts", type=int, default=0,
                    help=">1: arrange shards as a (hosts, shards/hosts) dcn x ici "
-                        "mesh with node-aware hierarchical exchange")
+                        "mesh with node-aware hierarchical exchange (not ported "
+                        "yet: raises)")
     p.add_argument("--gfa", action="store_true", help="write final_assembly.gfa2")
     p.add_argument("--profile", action="store_true",
                    help="capture a profiler trace of the first round")

@@ -45,3 +45,18 @@ def test_chip_smoke_ci_digests_are_the_jax_packages(tmp_path, monkeypatch):
     ref_run_pipeline(ref_parse_args(["-r", fq, "-o", out, "--post-asm-only"] + S.POST_ASM))
     assert (S.sam_digest(sam), S.sha256(dep)) == (S.CI_ONLY_SAM_SHA256,
                                                    S.CI_ONLY_DEPTHS_SHA256)
+
+
+def test_chip_smoke_shards4_digest_is_the_jax_packages(tmp_path):
+    """chip_smoke.py phase 3's `--shards 4` FASTA digest is the JAX package's
+    `-k 21 33 --shards 4` on the CI sample (4 of the 8 virtual CPU devices).
+    Counting is exact under any split of the reads, so the block size
+    changes no contig. It is not the single-device digest: the sharded
+    branch keeps every path (no min_ctg_len) and breaks cycles at the least
+    (shard, row) node."""
+    fq, _gens, _n = S.make_community(str(tmp_path / "data"), "synth_sample", 3, 20000, 5000,
+                                     18.0, 150, 20260817, False)
+    out = str(tmp_path / "run4")
+    ref_run_pipeline(ref_parse_args(["-r", fq, "-k", "21", "33", "-o", out, "--shards", "4"]))
+    assert S.sha256(f"{out}/final_assembly.fasta") == S.CI_SHARDS4_FASTA_SHA256
+    assert S.CI_SHARDS4_FASTA_SHA256 != S.CI_FASTA_SHA256

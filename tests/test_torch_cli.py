@@ -146,5 +146,23 @@ def test_profile_writes_a_trace(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--shards", "2"], ["--hosts", "2"]])
 def test_sharded_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        run(["-r", str(tmp_path / "x.fastq"), "-o", str(tmp_path / "o")] + flag)
+    """--hosts 2 (the multi-host layout) still raises, naming its ROADMAP
+    item; --shards 2 runs, both shards on the one device, and writes the
+    JAX package's --shards 2 FASTA and k-mer dump."""
+    if flag[0] == "--hosts":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+            run(["-r", str(tmp_path / "x.fastq"), "-o", str(tmp_path / "o")] + flag)
+        return
+    import gzip
+
+    fq = make_data(np.random.default_rng(2), tmp_path)
+    args = ["-r", fq, "-k", "21", "33", "--block-reads", "1024", "--dump-kmers"] + flag
+    ref_run_pipeline(ref_parse_args(args + ["-o", str(tmp_path / "ref")]))
+    asm = run(args + ["-o", str(tmp_path / "port")])
+    final = read(str(tmp_path / "port" / "final_assembly.fasta"))
+    assert final == read(str(tmp_path / "ref" / "final_assembly.fasta")) and final.count(">") >= 1
+    dumps = [gzip.open(str(tmp_path / d / "kmers-33.txt.gz")).read() for d in ("port", "ref")]
+    assert dumps[0] == dumps[1] and dumps[0].count(b"\n") > 1000
+    log = read(str(tmp_path / "port" / "mhm2_torch.log"))
+    assert "k=33: exchange" in log and "sharded stitch rounds" in log
+    assert asm.round_stats[21]["records"] > 0

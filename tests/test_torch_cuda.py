@@ -453,3 +453,47 @@ def test_cli_profile_and_restart(cuda, tmp_path):
     os.remove(f"{out}/contigs-33.fasta")
     run_pipeline(parse_args(args + ["--restart"]))
     assert open(f"{out}/final_assembly.fasta").read() == final
+
+
+@pytest.mark.parametrize("k", [21, 33, 55, 77, 99])
+@pytest.mark.parametrize("B,extra", [(3, 0), (5, 1), (7, 127), (2, 129), (3, 2048 - 99)])
+def test_minimizer(cuda, k, B, extra):
+    """Targets at P = 1, tile edges (128 positions a block), contig windows,
+    with N bases; shard counts 1, 2, 3, 4 and 4096."""
+    from mhm2_proxy_tpu_torch.constants import minimizer_len_for_k
+    from mhm2_proxy_tpu_torch.ops import minimizer
+
+    rng = np.random.default_rng(k * 100 + B + extra)
+    m = minimizer_len_for_k(k)
+    L = k + extra
+    codes = torch.from_numpy(rng.integers(0, 5, (B, L), dtype=np.uint8))
+    for S in (1, 2, 3, 4, 4096):
+        want = minimizer.minimizer_targets(codes, k, m, S)
+        got = _launched("minimizer", lambda: minimizer.minimizer_targets(codes.to(cuda), k, m, S))
+        _same((got,), (want,))
+    empty = minimizer.minimizer_targets(codes[:0].to(cuda), k, m, 4)
+    assert empty.shape == (0, L - k + 1)
+
+
+def test_cli_shards_2(cuda, tmp_path):
+    """--shards 2 on the card writes the FASTA of the same run on the CPU,
+    and launches the minimizer kernel."""
+    from mhm2_proxy_tpu_torch.io.fastq import write_fastq
+    from mhm2_proxy_tpu_torch.main import run_pipeline
+    from mhm2_proxy_tpu_torch.options import parse_args
+    from mhm2_proxy_tpu_torch.utils.synth import random_genome, simulate_reads
+
+    rng = np.random.default_rng(17)
+    ids, seqs, quals = simulate_reads(rng, random_genome(rng, 4000), coverage=20.0,
+                                      read_len=100, err_rate=0.002)
+    fq = str(tmp_path / "reads.fastq")
+    write_fastq(fq, ids, seqs, quals)
+    finals = {}
+    for dev in ("cpu", "cuda"):
+        out = str(tmp_path / dev)
+        kernels.reset_launches()
+        run_pipeline(parse_args(["-r", fq, "-k", "21", "33", "-o", out, "--shards", "2",
+                                 "--block-reads", "1024", "--device", dev]))
+        finals[dev] = open(f"{out}/final_assembly.fasta").read()
+        assert (kernels.launches()["minimizer"] > 0) == (dev == "cuda")
+    assert finals["cuda"] == finals["cpu"] and finals["cuda"].count(">") >= 1

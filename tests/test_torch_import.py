@@ -17,7 +17,9 @@ def test_port_imports_no_jax():
         "from mhm2_proxy_tpu_torch import kcount, dbjg, models, io, utils, options\n"
         "from mhm2_proxy_tpu_torch.models import assembler, post_asm\n"
         "from mhm2_proxy_tpu_torch.ops import (bitkmer, compact, count, extract, finalize,\n"
-        "    join, kernels, lookup, scan, sort, ssw, u32, _build)\n"
+        "    join, kernels, lookup, minimizer, scan, sort, ssw, u32, u64, _build)\n"
+        "from mhm2_proxy_tpu_torch.parallel import sharded\n"
+        "from mhm2_proxy_tpu_torch.dbjg import traverse_sharded, stitch_sharded\n"
         "from mhm2_proxy_tpu_torch.io import merge, native, gfa, stream\n"
         "from mhm2_proxy_tpu_torch.utils import memlog\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mhm2_proxy_tpu.')) or m == 'mhm2_proxy_tpu')\n"
@@ -49,7 +51,7 @@ def test_chip_smoke_imports_no_jax():
 
 def test_cpu_tensors_leave_launch_counts_at_zero():
     from mhm2_proxy_tpu_torch.ops import (compact, count, extract, finalize, kernels, lookup,
-                                          scan, sort, ssw)
+                                          minimizer, scan, sort, ssw)
 
     kernels.reset_launches()
     rng = np.random.default_rng(3)
@@ -69,8 +71,9 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
                                   payload_bits=bits)
     lens = torch.full((8,), 40, dtype=torch.int32)
     ssw.sw_align(codes, lens, codes, lens)
+    minimizer.minimizer_targets(codes, 21, 15, 4)
     assert kernels.launches() == {"extract": 0, "sort": 0, "finalize": 0, "compact": 0, "join": 0,
-                                  "scan": 0, "ssw": 0}
+                                  "scan": 0, "ssw": 0, "minimizer": 0}
 
 
 def test_unported_paths_raise():
@@ -80,11 +83,16 @@ def test_unported_paths_raise():
     from mhm2_proxy_tpu_torch.main import run_pipeline
     from mhm2_proxy_tpu_torch.options import Options
 
-    for opt in (dict(shards=2), dict(hosts=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-            run_pipeline(Options(reads=["x.fastq"], device="cpu", **opt))
-    # ported since: k = 63's separate payload and the collapse past the budget
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        run_pipeline(Options(reads=["x.fastq"], device="cpu", shards=4, hosts=2))
+    # ported since: k = 63's separate payload and the collapse past the
+    # budget, and the flat sharded counter (--shards without --hosts)
     store = KmerCountStore(63, device="cpu", raw_budget_bytes=16)
     codes = np.full((4, 96), 1, np.uint8)
     store.add_reads_block(codes, np.ones((4, 96), bool), np.full(4, 96, np.int32))
     assert store.stats["collapses"] == 1 and int(store.finalize().n) == 1
+    from mhm2_proxy_tpu_torch.parallel import ShardedCounter
+
+    counter = ShardedCounter(21, 2, device="cpu")
+    counter.add_reads_block(codes, np.ones((4, 96), bool), np.full(4, 96, np.int32))
+    assert int(counter.finalize().n.sum()) == 1
