@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch + CUDA port (mhm2_proxy_tpu_torch).
 
-    python3 chip_smoke.py            # every phase, one GPU
+    python3 chip_smoke.py                          # every phase, one GPU
+    python3 chip_smoke.py --only callers [DIR]     # phase 2's whole-call rows
+    python3 chip_smoke.py --only ladder [DIR]      # phase 5, kernels metered
+
+(DIR: the checkout whose mhm2_proxy_tpu_torch to run, default this one, so
+that another tree, e.g. a parent commit unpacked beside it, is timed on the
+same inputs.)
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
@@ -23,7 +29,10 @@ Phases (any failure raises, and the script exits non-zero):
      and the sharded store (4 shards, a small bucket cap: spill rounds, a
      contig pass) on CUDA against the CPU at k = 21 and 77: per-shard
      tables, exchange statistics, sharded_lookup's answers, contigs and
-     stitch rounds;
+     stitch rounds; and the compact and sort kernels' main callers as whole
+     calls (_merge_sorted_sets, _compact_keep, _split_emit at real widths),
+     kernel and torch around it, against the same calls through the plain
+     versions on the card;
   3. the CI sample (ci/make_sample.py's default community, regenerated with
      the port's synth) end to end through the CLI entry point with
      --post-asm-align --post-asm-abundance, then --post-asm-only on the same
@@ -41,8 +50,10 @@ Phases (any failure raises, and the script exits non-zero):
      through the CLI with the default k ladder 21 33 55 77 99: per-k
      counting log (blocks, raw rows, split-LSM collapses, cascade merges and
      deferrals, ranged pieces, table rows, peak device memory), all six
-     contigging launch counts > 0, at least one collapse, one ranged read
-     fold and one ranged ctg-rule fold, and >= 95% exact-substring bases;
+     contigging launch counts > 0, each kernel's device ms over the ladder
+     (a CUDA event pair around every call of its wrapper), at least one
+     collapse, one ranged read fold and one ranged ctg-rule fold, and >= 95%
+     exact-substring bases;
   6. store-level equality on that community's reads plus contig windows cut
      from its genomes, at k = 33 (k = 77's separate payload runs the forced
      split LSM in phase 2):
@@ -64,7 +75,7 @@ Phases (any failure raises, and the script exits non-zero):
      >= 95% exact-substring bases; and how many printed contigs differ from
      phase 5's (only cycle break points may).
 Prints the kernels' JSON summary (launch counts of phase 5, ssw's of phase
-7, minimizer's of phase 8), then the card line, then as the last line
+7, minimizer's of phase 8; ladder_ms: phase 5's device ms), then the card line, then as the last line
 {"ok": true, "device": {...}}. Without CUDA it exits 2, and without the
 mhm2_proxy_tpu_torch package beside it 3, printing no result. Work files go
 to chip_smoke_work/ next to this script (removed at the end).
@@ -140,6 +151,18 @@ K21_33_KERNELS = ("extract", "sort", "finalize", "compact", "join")
 # target shards, the receivers' aggregation (lexsort, scan, compact) and the
 # LSM's merges
 SHARDED_KERNELS = ("minimizer", "extract", "sort", "scan", "compact")
+
+
+# the main path's kernel wrappers (ops module, its CUDA wrappers), each
+# metered with CUDA event pairs over phase 5's ladder
+MAIN_PATH_WRAPPERS = {
+    "extract": ("extract", ("_extract_cuda",)),
+    "sort": ("sort", ("_merge_cuda",)),
+    "finalize": ("finalize", ("_scan_purge_cuda",)),
+    "compact": ("compact", ("_compact_cuda",)),
+    "join": ("join", ("_propagate_cuda", "_propagate_sep_cuda")),
+    "scan": ("scan", ("_scan_lanes_cuda", "_scan_packed_cuda")),
+}
 
 
 def log(*a):
@@ -456,22 +479,18 @@ def phase_kernels(results):
         del out
 
     # sort: the 1120-tile merge (7,340,032 + 29,360,128 rows = 36,700,160),
-    # two odd-length merges, and the pad_fill variant at a join shape
+    # two odd-length merges, and a kw = 4 + payload merge at a join shape
     cases = [
-        ("1120-tile merge 7340032+29360128 kw=2", 7_340_032, 29_360_128, 2, 2, None),
-        ("odd merge 1000003+2999999 kw=3", 1_000_003, 2_999_999, 3, 3, None),
-        ("odd merge 12345+1 kw=2 +1 payload", 12_345, 1, 2, 3, None),
-        ("pad_fill merge 7000001+14000002 kw=4 +1 payload", 7_000_001, 14_000_002, 4, 5,
-         (0x01FFFFFF,)),
+        ("1120-tile merge 7340032+29360128 kw=2", 7_340_032, 29_360_128, 2, 2),
+        ("odd merge 1000003+2999999 kw=3", 1_000_003, 2_999_999, 3, 3),
+        ("odd merge 12345+1 kw=2 +1 payload", 12_345, 1, 2, 3),
+        ("merge 7000001+14000002 kw=4 +1 payload", 7_000_001, 14_000_002, 4, 5),
     ]
-    for what, na, nb, kw, n_lanes, fill in cases:
+    for what, na, nb, kw, n_lanes in cases:
         a = random_sorted_run(na, n_lanes, kw, gen)
         b = random_sorted_run(nb, n_lanes, kw, gen, dup_from=a)
-        total = na + nb
-        n_out = -(-total // sort.TILE) * sort.TILE if fill else total
-        fl = [-1] * kw + [x - (1 << 32) if x >= 1 << 31 else x for x in (fill or [0] * (n_lanes - kw))]
-        kern = lambda: sort._merge_cuda(a, b, kw, n_out, fl)  # noqa: E731
-        plain = lambda: sort._merge_plain(a, b, kw, n_out, fl)  # noqa: E731
+        kern = lambda: sort._merge_cuda(a, b, kw, False)  # noqa: E731
+        plain = lambda: sort._merge_plain(a, b, kw, False)  # noqa: E731
         out = kern()
         err = max_abs_err(out, plain())
         library_ms = None
@@ -482,7 +501,7 @@ def phase_kernels(results):
             del key
         # per output row: the key compare (kw words) and the select
         record("sort", err, cuda_ms(kern), cuda_ms(plain), what, nbytes(a, b, out),
-               n_out * (2 * kw + 2), library_ms)
+               (na + nb) * (2 * kw + 2), library_ms)
         del a, b, out
 
     # finalize: purge True and False over a merged run of two extracted read
@@ -523,23 +542,29 @@ def phase_kernels(results):
                N * OPS_PER_ROW["finalize"])
     del runs, merged, keys, pay
 
-    # compact: 2-class at 36,700,160 rows, 3 lanes, emit class 0
+    # compact: 2-class at 36,700,160 rows, 3 lanes, emit class 0 (a fifth of
+    # the rows), rows past the count unwritten, as the library call; int32
+    # class flags, then the same rows as a bool keep mask
     N = 36_700_160
     lanes = tuple(torch.randint(-2**31, 2**31, (N,), dtype=torch.int32, device=dev, generator=gen)
                   for _ in range(3))
     flags = (torch.rand((N,), device=dev, generator=gen) > 0.2).to(torch.int32)
-    kern = lambda: compact._compact_cuda(lanes, flags, 2, (0,), ((0, 1, 2),))  # noqa: E731
-    plain = lambda: compact._compact_plain(lanes, flags, (0,), ((0, 1, 2),))  # noqa: E731
-    ((ko, kn),), ((po, pn),) = kern(), plain()
-    n = int(pn)
-    err = abs(int(kn) - n) + max_abs_err(tuple(x[:n] for x in ko), tuple(x[:n] for x in po))
-    # one class emitted: boolean-mask indexing of the stacked lanes
+    layout = (((0,), (1,), (2,)),)
     stacked, keep = torch.stack(lanes, 1), flags == 0
+    # one class emitted: boolean-mask indexing of the stacked lanes
     library_ms = cuda_ms(lambda: stacked[keep])
-    del stacked, keep
-    record("compact", err, cuda_ms(kern), cuda_ms(plain), f"{N} rows 2-class",
-           nbytes(lanes, flags) + 12 * n, N * OPS_PER_ROW["compact"], library_ms)
-    del lanes, flags
+    del stacked
+    for what, fl in ((f"{N} rows 2-class", flags), (f"{N} rows bool keep mask", keep)):
+        kern = lambda: compact._compact_cuda(lanes, fl, 2, (0,), layout, None)  # noqa: E731
+        plain = lambda: compact._compact_plain(lanes, fl, (0,), layout, None)  # noqa: E731
+        ((ko,), kn), ((po,), pn) = kern(), plain()
+        n = int(pn[0])
+        err = abs(int(kn[0]) - n) + max_abs_err(tuple(x[:n] for x in ko), tuple(x[:n] for x in po))
+        # bytes: the flags, and the emitted rows' lanes read and written (the
+        # kernel gathers only those rows)
+        record("compact", err, cuda_ms(kern), cuda_ms(plain), what,
+               nbytes(fl) + 2 * 12 * n, N * OPS_PER_ROW["compact"], library_ms)
+    del lanes, flags, keep
 
     # join: the k=21 edge join at the real-size community's shape: a table
     # of 7,340,032 rows (6,636,069 valid), two queries per row (70% hits,
@@ -757,19 +782,20 @@ def phase_collapse_kernels(record, genome, gen):
     cnt = p[0] & 0xFFFF
     flags = torch.where(last & (cnt >= 2), 0, torch.where(last & (cnt == 1), 1, 2)).to(torch.int32)
     lanes = w + tuple(p)
-    sel = (tuple(range(7)), tuple(range(3)))
-    kern = lambda: compact._compact_cuda(lanes, flags, 3, (0, 1), sel)  # noqa: E731
-    plain = lambda: compact._compact_plain(lanes, flags, (0, 1), sel)  # noqa: E731
+    layouts = (tuple((i,) for i in range(7)), tuple((i,) for i in range(3)))
+    kern = lambda: compact._compact_cuda(lanes, flags, 3, (0, 1), layouts, None)  # noqa: E731
+    plain = lambda: compact._compact_plain(lanes, flags, (0, 1), layouts, None)  # noqa: E731
     err = 0
     emitted = 0
-    for (ko, kn), (po, pn), sl in zip(kern(), plain(), sel):
-        n = int(pn)
-        emitted += 4 * n * len(sl)
-        err = max(err, abs(int(kn) - n) + max_abs_err(tuple(x[:n] for x in ko),
-                                                      tuple(x[:n] for x in po)))
+    (kouts, kn), (pouts, pn) = kern(), plain()
+    for ko, po, kc, pc, sl in zip(kouts, pouts, kn.tolist(), pn.tolist(), layouts):
+        emitted += 4 * pc * len(sl)
+        err = max(err, abs(kc - pc) + max_abs_err(tuple(x[:pc] for x in ko),
+                                                  tuple(x[:pc] for x in po)))
+    del kouts, pouts
     record("compact", err, cuda_ms(kern), cuda_ms(plain),
            f"{N} rows 3-class split, emit_lanes 7/3 (k=21 collapse)",
-           nbytes(lanes, flags) + emitted, N * OPS_PER_ROW["compact"])
+           nbytes(flags) + 2 * emitted, N * OPS_PER_ROW["compact"])
     del lanes, flags, w, skey, sent, last, cnt, p
 
     # lanes scan at the final fold's shape: counts 1-300 on one-hot exts
@@ -861,6 +887,125 @@ def phase_lookup(gen):
     log(f"[lookup] table_lookup {T} rows, {Q} queries: {int(found_h.sum())} found, CUDA "
         f"{ms:.3f} ms, CPU {cpu_s:.2f} s, CUDA == CPU: {same}")
     check(same and int(found_h.sum()) >= Q // 2, "table_lookup on CUDA differs from the CPU")
+
+
+def phase_callers(seed: int = 20261016):
+    """The compact and sort kernels' main callers as whole calls, timed as
+    the caller sees them (the kernel and the torch around it), each against
+    the same call through the plain versions on the card (kernels.use_kernel
+    answering False), bit-equal: _merge_sorted_sets (the split LSM's merge
+    at k = 21: two deduped sets of 18,350,080 rows, W = 2 key lanes + 5
+    packed sum lanes), _compact_keep (36,700,160 rows, W = 2 + one payload
+    lane, a fifth kept) and _split_emit (the k = 21 collapse shape,
+    163,577,856 rows, W = 2 + 5 lanes, a quarter multis, a sixth singles).
+    It runs whichever mhm2_proxy_tpu_torch comes first on sys.path, so that
+    `--callers DIR` times another tree's callers on the same inputs."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import count, kernels
+    from mhm2_proxy_tpu_torch.ops.u32 import lexsort_perm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rand(shape, lo=-2**31, hi=2**31):
+        return torch.randint(lo, hi, shape, dtype=torch.int32, device="cuda", generator=gen)
+
+    def sorted_set(n):
+        w = rand((n, 2))
+        w = w[lexsort_perm((w[:, 0], w[:, 1]))].contiguous()
+        return w, rand((n,), 1, 301), rand((n, 4), 0, 1 << 16), rand((n, 4), 0, 1 << 16)
+
+    def flat(x):
+        return [t for y in x for t in flat(y)] if isinstance(x, (tuple, list)) else [x]
+
+    def run(name, what, fn):
+        out_k = fn()
+        ms = cuda_ms(fn)
+        orig = kernels.use_kernel
+        kernels.use_kernel = lambda *t: False
+        try:
+            out_p = fn()
+            plain_ms = cuda_ms(fn)
+        finally:
+            kernels.use_kernel = orig
+        same = all(torch.equal(a, b) for a, b in zip(flat(out_k), flat(out_p)))
+        log(f"[caller] {name} {what}: kernel path {ms:.3f} ms, plain path {plain_ms:.3f} ms, "
+            f"equal to the plain path: {same}")
+        check(same and len(flat(out_k)) == len(flat(out_p)), f"{name}: kernel and plain paths "
+              "differ")
+        return ms
+
+    times = {}
+    a, b = sorted_set(18_350_080), sorted_set(18_350_080)
+    times["_merge_sorted_sets"] = run("_merge_sorted_sets", "18350080+18350080 rows, W=2 + 5 "
+                                      "sum lanes", lambda: count._merge_sorted_sets(a, b))
+    del a, b
+    N = 36_700_160
+    words, pay = rand((N, 2)), rand((N,))
+    keep = torch.rand((N,), device="cuda", generator=gen) < 0.2
+    times["_compact_keep"] = run("_compact_keep", f"{N} rows, W=2 + 1 payload lane",
+                                 lambda: count._compact_keep(words, keep, (pay,)))
+    del words, pay, keep
+    N = 163_577_856
+    words, p = rand((N, 2)), tuple(rand((N,)) for _ in range(5))
+    u = torch.rand((N,), device="cuda", generator=gen)
+    keep_m, keep_s = u < 0.25, (u >= 0.25) & (u < 0.25 + 1 / 6)
+    del u
+    times["_split_emit"] = run("_split_emit", f"{N} rows, W=2 + 5 lanes (k=21 collapse)",
+                               lambda: count._split_emit(words, p, keep_m, keep_s))
+    del words, p, keep_m, keep_s
+    torch.cuda.empty_cache()
+    return times
+
+
+class kernel_meter:
+    """Within the block, a CUDA event pair around every call of the given
+    kernel wrappers (name -> (ops module, wrapper names)), as phase 7 meters
+    ssw. A pair spans what the stream ran between its two records: the
+    wrapper's launches, and any gap in which the stream waited for the
+    host. totals() synchronizes and gives, per kernel, (wrapper calls,
+    device ms)."""
+
+    def __init__(self, wrappers):
+        self.wrappers, self.events, self.saved = wrappers, {}, []
+
+    def __enter__(self):
+        import importlib
+
+        for name, (mod, fns) in self.wrappers.items():
+            m = importlib.import_module(f"mhm2_proxy_tpu_torch.ops.{mod}")
+            events = self.events.setdefault(name, [])
+            for fn in fns:
+                orig = getattr(m, fn)
+                self.saved.append((m, fn, orig))
+                setattr(m, fn, self._metered(orig, events))
+        return self
+
+    @staticmethod
+    def _metered(orig, events):
+        import torch
+
+        def metered(*args, **kwargs):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            res = orig(*args, **kwargs)
+            ev[1].record()
+            events.append(ev)
+            return res
+
+        return metered
+
+    def __exit__(self, *exc):
+        for m, fn, orig in self.saved:
+            setattr(m, fn, orig)
+
+    def totals(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return {name: (len(ev), sum(e0.elapsed_time(e1) for e0, e1 in ev))
+                for name, ev in self.events.items()}
 
 
 def phase_devices():
@@ -1133,8 +1278,10 @@ def phase_arctic(work):
     from mhm2_proxy_tpu_torch.kcount import KmerCountStore
 
     k21 = k21_table_copy(KmerCountStore, lambda table: table.to_numpy())
-    with k21:
+    meter = kernel_meter(MAIN_PATH_WRAPPERS)
+    with k21, meter:
         wall, counts, _ = run_cli(fq, out)
+    ladder = meter.totals()
     rounds, modules = parse_run_log(os.path.join(out, "mhm2_torch.log"))
     for k, r in sorted(rounds.items()):
         log(f"[arctic] k={k}: {r['blocks']} blocks, raw rows {r['raw_rows']} (largest merged "
@@ -1147,6 +1294,9 @@ def phase_arctic(work):
         log(f"[arctic] stage {name}: {secs:.2f} s")
     log(f"[arctic] wall {wall:.2f} s ({k21.seconds:.2f} s of it copying the k=21 table to the "
         f"host for phase 8's check), launches {counts}")
+    for name, (calls, ms) in ladder.items():
+        log(f"[arctic] kernel {name}: {counts[name]} launches, {calls} wrapper calls, "
+            f"{ms:.2f} device ms over the ladder (CUDA event pairs around the wrapper)")
     check(sorted(rounds) == [21, 33, 55, 77, 99], f"rounds run: {sorted(rounds)}")
     check(all(counts[k] > 0 for k in counts if k not in ("ssw", "minimizer")),
           f"a kernel of the path never launched: {counts}")
@@ -1161,7 +1311,7 @@ def phase_arctic(work):
     log(f"[arctic] {asm_metrics(seqs)}; exact-substring bases {match}/{tot} = {frac:.4f}; "
         f"k=21 table {k21_dig[0]} rows, digest {k21_dig[1][:16]}")
     check(tot > 0 and frac >= 0.95, frac)
-    return fq, gens, counts, out, k21_dig
+    return fq, gens, counts, out, k21_dig, {name: ms for name, (_c, ms) in ladder.items()}
 
 
 class k21_table_copy:
@@ -1418,20 +1568,40 @@ def phase_store_equality(fq, gens, device="cuda", forced=FORCED, block_reads=131
         log(f"[store] k={k}: forced == raw-only")
 
 
-def main():
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(ROOT, "mhm2_proxy_tpu_torch")):
+    # `--only callers|ladder [DIR]`: only phase_callers, or only phase 5 (the
+    # 27 Mbp ladder, its kernels metered), on the package of DIR (default
+    # this checkout), e.g. a parent tree unpacked beside it
+    only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
+    if argv and only not in ("callers", "ladder"):
+        print("usage: chip_smoke.py [--only callers|ladder [PACKAGE_DIR]]", file=sys.stderr)
+        return 2
+    root = os.path.abspath(argv[2]) if len(argv) > 2 else ROOT
+    if not os.path.isdir(os.path.join(root, "mhm2_proxy_tpu_torch")):
         # the script alone: there is nothing to build or drive
-        print(f"chip_smoke: no mhm2_proxy_tpu_torch/ beside this script in {ROOT}; run it "
+        print(f"chip_smoke: no mhm2_proxy_tpu_torch/ in {root}; run it "
               "from a checkout of the repository", file=sys.stderr)
         return 3
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
+    if only:
+        log(f"[card] {card_line()}; package {root}")
+        if only == "callers":
+            phase_callers()
+            return 0
+        work = os.path.join(ROOT, "chip_smoke_work")
+        try:
+            phase_arctic(work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
     from mhm2_proxy_tpu_torch.ops import _build, kernels
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[card] {card}")
     log(f"[versions] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1445,11 +1615,12 @@ def main():
     results: dict = {}
     try:
         phase_kernels(results)
+        phase_callers()
         phase_devices()
         phase_sharded_devices()
         phase_ci(work)
         phase_real(work)
-        fq, gens, counts, out, k21 = phase_arctic(work)
+        fq, gens, counts, out, k21, ladder_ms = phase_arctic(work)
         phase_store_equality(fq, gens)
         counts["ssw"] = phase_post_asm(fq, out)["ssw"]
         counts["minimizer"] = phase_sharded_arctic(work, fq, gens, out, k21)["minimizer"]
@@ -1462,7 +1633,8 @@ def main():
                             launches=counts[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
-                            shape=r["shape"]))
+                            shape=r["shape"], ladder_ms=ladder_ms.get(name)))
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": summary}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1472,4 +1644,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -502,14 +502,11 @@ def _merge_ctg_aggregates(a_w, a_pmin, a_pmax, a_dmin, b_w, b_pmin, b_pmax, b_dm
     """Merge two deduped ctg runs (sort kernel): key multiplicity <= 2, so
     the combine needs only the previous row."""
     W = a_w.shape[-1]
-    lanes = lambda w, pmn, pmx, dmn: tuple(w[:, i].contiguous() for i in range(W)) + (  # noqa: E731
-        _pack_ctg(pmn, pmx, dmn),
-    )
-    out = merge_sorted_lanes(lanes(a_w, a_pmin, a_pmax, a_dmin),
-                             lanes(b_w, b_pmin, b_pmax, b_dmin), W)
-    w = torch.stack(out[:W], dim=-1)
-    pmin, pmax, dmin = _unpack_ctg(out[W])
-    neq = ~rows_equal_next(out[:W])
+    lanes = lambda w, pmn, pmx, dmn: C._lanes(w) + (_pack_ctg(pmn, pmx, dmn),)  # noqa: E731
+    w, packed = merge_sorted_lanes(lanes(a_w, a_pmin, a_pmax, a_dmin),
+                                   lanes(b_w, b_pmin, b_pmax, b_dmin), W, as_words=True)
+    pmin, pmax, dmin = _unpack_ctg(packed)
+    neq = ~rows_equal_next(C._lanes(w))
     zero = torch.zeros((1,), dtype=torch.bool, device=w.device)
     same = torch.cat([zero, ~neq])
     is_last = torch.cat([neq, ~zero])
@@ -557,21 +554,19 @@ def _apply_ctg_rules(r_words, r_count, r_l4, r_r4, r_n,
     W = r_words.shape[-1]
 
     def side(words, valid, count, l4, r4, flags):
-        w = C._sentinelize(words, valid)
-        return tuple(w[:, i].contiguous() for i in range(W)) + (flags,) + C._pack_sums(count, l4, r4)
+        return C._lanes(C._sentinelize(words, valid)) + (flags,) + C._pack_sums(count, l4, r4)
 
     r_flags = (r_valid.to(torch.int32) | (r_keep.to(torch.int32) << 1))
     c_flags = c_valid.to(torch.int32) << 2
-    out = merge_sorted_lanes(side(r_words, r_valid, r_count, r_l4, r_r4, r_flags),
-                             side(c_words, c_valid, c_count, c_l4, c_r4, c_flags), W)
-    words = torch.stack(out[:W], dim=-1)
-    flags = out[W]
-    count, l4, r4 = C._unpack_sums(*out[W + 1 :])
+    words, flags, *sums = merge_sorted_lanes(side(r_words, r_valid, r_count, r_l4, r_r4, r_flags),
+                                             side(c_words, c_valid, c_count, c_l4, c_r4, c_flags),
+                                             W, as_words=True)
+    count, l4, r4 = C._unpack_sums(*sums)
     is_read = (flags & 1).bool()
     keep_read = ((flags >> 1) & 1).bool()
     is_ctg = ((flags >> 2) & 1).bool()
 
-    neq = ~rows_equal_next(out[:W])
+    neq = ~rows_equal_next(C._lanes(words))
     zero = torch.zeros((1,), dtype=torch.bool, device=dev)
     same_prev = torch.cat([zero, ~neq])
     is_last = torch.cat([neq, ~zero])

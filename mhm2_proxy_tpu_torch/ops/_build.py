@@ -42,10 +42,11 @@ U32 = ctypes.c_uint32
 # C entry points -> argtypes (each returns a cudaError_t as int)
 _SIGNATURES = {
     "mhm2_extract": [P, P, P, I64, I32, I32, I32, P, I32, P],
-    "mhm2_merge": [P, I64, P, I64, P, I32, I32, I64, P, P],
+    "mhm2_merge": [P, P, I64, P, P, I64, P, P, I32, I32, P, I64, P],
+    "mhm2_merge_tile_rows": [I32],
     "mhm2_finalize": [P, I32, I32, I64, U32, I32, I32, P, P, P, P, P, P],
-    "mhm2_compact_count": [P, I64, I32, P, P],
-    "mhm2_compact_scatter": [P, P, I32, P, I64, I32, I32, P, P],
+    "mhm2_compact": [P, P, I32, P, I32, I64, I32, I32, P, P, P, P, P, P, P, I32, P, P, I64, P,
+                     I64, P],
     "mhm2_join": [P, I32, P, I64, P, I32, I32, P, I64, P],
     "mhm2_join_sep": [P, I32, P, P, I64, P, I32, P, I64, P],
     "mhm2_scan_lanes": [P, I32, P, I64, I32, P, P, P, P, P],

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import EXT_NONE, EXT_X, MAX_KMER_COUNT, minimizer_len_for_k, words32_for_k
-from .compact import compact_classes
+from .compact import compact_lanes
 from .extract import extract_packed_lanes, extract_record_lanes
 from .finalize import get_ext_calls as _get_ext_calls
 from .finalize import scan_purge
@@ -114,20 +114,24 @@ def _unpack_sums(c, l01, l23, r01, r23):
     return c.to(torch.int32), l4, r4
 
 
+def _words_layout(W: int, n_pay: int, n_key: int | None = None):
+    """compact_lanes layout and fills: (N, W) words (all-ones tail) from the
+    first n_key lanes (default W; the columns past them 0), then n_pay
+    payload lanes (zero tails) from the lanes after those."""
+    n_key = W if n_key is None else n_key
+    words = tuple(range(n_key)) + (None,) * (W - n_key)
+    return (words,) + tuple((n_key + i,) for i in range(n_pay)), (ONES,) + (0,) * n_pay
+
+
 def _compact_keep(words, keep, payload):
     """Stable compaction of keep-flagged rows to a dense prefix (compact
-    kernel). Returns (words (N, W) with all-ones tail, *payload lanes with
-    zero tails, n_keep 0-dim int32)."""
-    N, W = words.shape
-    flags = torch.where(keep, 0, 1).to(torch.int32)
-    lanes = tuple(words[:, i].contiguous() for i in range(W)) + tuple(
-        p.contiguous() for p in payload
-    )
-    ((out, n),) = compact_classes(lanes, flags, 2, emit=(0,))
-    live = torch.arange(N, device=words.device) < n
-    u_words = torch.where(live[:, None], torch.stack(out[:W], dim=-1), ONES)
-    pays = tuple(torch.where(live, x, 0) for x in out[W:])
-    return (u_words,) + pays + (n,)
+    kernel; words read and written as (N, W)). Returns (words (N, W) with
+    all-ones tail, *payload lanes with zero tails, n_keep 0-dim int32)."""
+    W = words.shape[1]
+    layout, fills = _words_layout(W, len(payload))
+    (out,), counts = compact_lanes(_lanes(words) + tuple(payload), keep, 2, (0,), (layout,),
+                                   (fills,))
+    return out + (counts[0],)
 
 
 def trim_rows(n: int, floor: int = 256) -> int:
@@ -193,18 +197,13 @@ def merge_raw_runs(runs: list, kw: int | None = None):
 def _final_from_scanned(data, flags, weff: int, W: int, purge: bool):
     """Compact a finalize pass's output (scan_purge) into the final table
     (purge) or the unique aggregate (no purge)."""
-    ((out, n),) = compact_classes(data, flags, 2, emit=(0,))
-    N = flags.shape[0]
-    live = torch.arange(N, device=flags.device) < n
-    zero_lane = torch.where(live, 0, ONES).to(torch.int32)
-    u_words = torch.stack(
-        tuple(torch.where(live, x, ONES) for x in out[:weff]) + (zero_lane,) * (W - weff),
-        dim=-1,
-    )
+    layout, fills = _words_layout(W, len(data) - weff, weff)
+    (out,), counts = compact_lanes(data, flags, 2, (0,), (layout,), (fills,))
+    u_words, n = out[0], counts[0]
     if purge:
-        cnt, left, right = _unpack_cnt_ext(torch.where(live, out[weff], 0))
+        cnt, left, right = _unpack_cnt_ext(out[1])
         return u_words, cnt, left, right, n
-    u_count, u_l4, u_r4 = _unpack_sums(*(torch.where(live, x, 0) for x in out[weff : weff + 5]))
+    u_count, u_l4, u_r4 = _unpack_sums(*out[1:6])
     return u_words, u_count, u_l4, u_r4, n
 
 
@@ -250,8 +249,9 @@ def finalize_table(u_words, u_count, u_l4, u_r4, n_unique, dmin_thres: int = 2):
 
 
 def _lanes(words):
-    """(N, W) words -> W contiguous (N,) lanes."""
-    return tuple(words[:, i].contiguous() for i in range(words.shape[1]))
+    """(N, W) words -> its W columns as (N,) views (the sort and compact
+    kernels read them in place)."""
+    return tuple(words[:, i] for i in range(words.shape[1]))
 
 
 def _ends(words):
@@ -327,23 +327,16 @@ def _split_emit(words, p, keep_m, keep_s):
     lanes, class flags) -> split run. p[0] already carries the singleton ext
     code in its upper 16 bits on keep_s rows. Multis write W + 5 lanes,
     singles only the words and the (count | ext) lane."""
-    N, W = words.shape
+    W = words.shape[1]
     flags = torch.where(keep_m, 0, torch.where(keep_s, 1, 2)).to(torch.int32)
-    (m_out, n_multi), (s_out, n_single) = compact_classes(
-        _lanes(words) + tuple(p), flags, 3, emit=(0, 1),
-        emit_lanes=(tuple(range(W + 5)), tuple(range(W + 1))),
-    )
-    rows = torch.arange(N, device=words.device)
-    m_live = rows < n_multi
-    m_words = torch.where(m_live[:, None], torch.stack(m_out[:W], dim=-1), ONES)
-    m_count, m_l4, m_r4 = _unpack_sums(
-        torch.where(m_live, m_out[W] & 0xFFFF, 0),
-        *(torch.where(m_live, x, 0) for x in m_out[W + 1 :]),
-    )
-    s_live = rows < n_single
-    s_words = torch.where(s_live[:, None], torch.stack(s_out[:W], dim=-1), ONES)
-    s_ext = torch.where(s_live, (s_out[W] >> 16) & 0xFF, 0).to(torch.uint8)
-    return m_words, m_count, m_l4, m_r4, n_multi, s_words, s_ext, n_single
+    (m_lay, m_fill), (s_lay, s_fill) = _words_layout(W, 5), _words_layout(W, 1)
+    (m_out, s_out), counts = compact_lanes(_lanes(words) + tuple(p), flags, 3, (0, 1),
+                                           (m_lay, s_lay), (m_fill, s_fill))
+    m_words, m_p0, *m_p = m_out
+    m_count, m_l4, m_r4 = _unpack_sums(m_p0 & 0xFFFF, *m_p)
+    s_words, s_p0 = s_out
+    s_ext = ((s_p0 >> 16) & 0xFF).to(torch.uint8)
+    return m_words, m_count, m_l4, m_r4, counts[0], s_words, s_ext, counts[1]
 
 
 def _split_from_packed_sums(words, p, is_last, is_sent):
@@ -438,8 +431,8 @@ def _merge_sorted_sets(a, b):
     key lanes + the 5 packed sum lanes) -> sorted (words, count, l4, r4)."""
     W = a[0].shape[1]
     lanes = lambda x: _lanes(x[0]) + _pack_sums(*x[1:4])  # noqa: E731
-    out = merge_sorted_lanes(lanes(a), lanes(b), W)
-    return (torch.stack(out[:W], dim=-1),) + _unpack_sums(*out[W:])
+    words, *sums = merge_sorted_lanes(lanes(a), lanes(b), W, as_words=True)
+    return (words,) + _unpack_sums(*sums)
 
 
 def _dedup_keep(words, sums, is_last, is_sent):

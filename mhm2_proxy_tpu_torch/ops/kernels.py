@@ -69,6 +69,15 @@ def require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def require_lane(t: torch.Tensor, name: str) -> None:
+    """An int32 lane of any element stride (the sort and compact kernels
+    read and write a lane as a pointer plus a stride)."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected {torch.int32}, got {t.dtype}")
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D lane, got shape {tuple(t.shape)}")
+
+
 def lib():
     from . import _build
 
@@ -83,6 +92,12 @@ def ptrs(tensors) -> ctypes.Array:
     """Host array of device pointers for a C `void* const*` argument."""
     tensors = list(tensors)
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def strides(tensors) -> ctypes.Array:
+    """Host array of the 1-D lanes' element strides (`const int64_t*`)."""
+    tensors = list(tensors)
+    return (ctypes.c_int64 * len(tensors))(*[t.stride(0) for t in tensors])
 
 
 def check(rc: int, name: str) -> None:

@@ -23,9 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from .join import (IDX_MASK, MAX_PAYLOAD_BITS, QUERY_BIT, SEP_QUERY_BIT, propagate_answers,
+from .join import (MAX_PAYLOAD_BITS, QUERY_BIT, SEP_QUERY_BIT, propagate_answers,
                    propagate_answers_sep)
-from .sort import merge_sorted_lanes, merge_sorted_lanes_tiled
+from .sort import merge_sorted_lanes
 from .u32 import lexsort_lanes, narrow, widen
 
 # (row | query flag | payload) must fit one u32: row ids need 25 bits
@@ -34,17 +34,15 @@ _FUSED_MAX_ROWS = QUERY_BIT
 
 def merged_join_rows(table_words, query_words, payload):
     """The table rows (key lanes + idx | payload << 26) merged with the
-    sorted query rows (key lanes + idx | QUERY_BIT): W + 1 lanes, padded to
-    the sort's TILE. Pad rows carry source 0x01FFFFFF: query flag clear, idx
-    past any valid row, so a pad is never an answer nor a query."""
+    sorted query rows (key lanes + idx | QUERY_BIT): W + 1 lanes of T + Q
+    rows (the table's key lanes read in place)."""
     T, W = table_words.shape
     Q = query_words.shape[0]
     dev = table_words.device
     qsrc = narrow(torch.arange(Q, device=dev) | QUERY_BIT)
     qs = lexsort_lanes(tuple(query_words[:, w] for w in range(W)) + (qsrc,), W)
     tsrc = narrow(torch.arange(T, device=dev) | (payload.to(torch.int64) << 26))
-    a_lanes = tuple(table_words[:, w].contiguous() for w in range(W)) + (tsrc,)
-    return merge_sorted_lanes_tiled(a_lanes, qs, W, pad_fill=(IDX_MASK,))
+    return merge_sorted_lanes(tuple(table_words[:, w] for w in range(W)) + (tsrc,), qs, W)
 
 
 def table_join_payload(table_words, n_valid, query_words, payload,
@@ -80,7 +78,7 @@ def merged_join_rows_sep(table_words, query_words, payload):
     qsrc = narrow(torch.arange(Q, device=dev) | SEP_QUERY_BIT)
     zeros = torch.zeros((Q,), dtype=torch.int32, device=dev)
     qs = lexsort_lanes(tuple(query_words[:, w] for w in range(W)) + (qsrc, zeros), W)
-    a_lanes = tuple(table_words[:, w].contiguous() for w in range(W)) + (
+    a_lanes = tuple(table_words[:, w] for w in range(W)) + (
         torch.arange(T, dtype=torch.int32, device=dev), narrow(payload.to(torch.int64)),
     )
     return merge_sorted_lanes(a_lanes, qs, W)

@@ -76,26 +76,71 @@ def _sorted_run(rng, n, n_lanes, kw, n_keys):
     return lexsort_lanes(tuple(_i32(rows[:, i]) for i in range(n_lanes)), kw)
 
 
-@pytest.mark.parametrize("na,nb,kw,n_lanes,n_keys,pad", [
-    (0, 5, 2, 2, 3, 0),
-    (7, 0, 1, 3, 3, 0),
-    (1, 1, 2, 2, 2, 0),
-    (1023, 1025, 3, 3, 5000, 0),
-    (3000, 7001, 2, 3, 4, 0),        # equal-key runs across many blocks
-    (2500, 4100, 4, 5, 900, 1500),   # pad rows with a pad_fill value
-    (1000, 2072, 3, 8, 700, 0),      # W + 5 lanes (split sets), 3 whole blocks
-    (1536, 1536, 5, 6, 400, 0),      # key lanes + payload (k = 77 raw runs), 3 blocks
+@pytest.mark.parametrize("na,nb,kw,n_lanes,n_keys", [
+    (0, 5, 2, 2, 3),
+    (7, 0, 1, 3, 3),
+    (1, 1, 2, 2, 2),
+    (1023, 1025, 3, 3, 5000),
+    (3000, 7001, 2, 3, 4),          # equal-key runs across many tiles
+    (4095, 4096, 4, 5, 900),        # two 4096-row tiles less one row
+    (4097, 4096, 4, 5, 900),        # and one more
+    (1000, 2072, 3, 8, 700),        # W + 5 lanes (split sets)
+    (2048, 2047, 5, 6, 400),        # key lanes + payload (k = 77 raw runs): 2048-row tiles
+    (2048, 2049, 5, 6, 400),
 ])
-def test_merge(cuda, na, nb, kw, n_lanes, n_keys, pad):
+def test_merge(cuda, na, nb, kw, n_lanes, n_keys):
     rng = np.random.default_rng(na + nb + kw)
     a = _sorted_run(rng, na, n_lanes, kw, n_keys)
     b = _sorted_run(rng, nb, n_lanes, kw, n_keys)
-    fill = [0x01FFFFFF + i for i in range(n_lanes - kw)] if pad else None
-    n_out = na + nb + pad
-    want = sort.merge_sorted_lanes(a, b, kw, n_out, fill)
+    want = sort.merge_sorted_lanes(a, b, kw)
     got = _launched("sort", lambda: sort.merge_sorted_lanes(
-        tuple(x.to(cuda) for x in a), tuple(x.to(cuda) for x in b), kw, n_out, fill))
+        tuple(x.to(cuda) for x in a), tuple(x.to(cuda) for x in b), kw))
     _same(got, want)
+
+
+@pytest.mark.parametrize("kw", range(1, 9))
+def test_merge_key_widths(cuda, kw):
+    """kw = 1 to 8 with 16 lanes, over few keys: equal-key runs straddle
+    the tile and partition boundaries; lengths a tile multiple plus and
+    minus one."""
+    tile = 4096 if kw <= 4 else 2048
+    rng = np.random.default_rng(kw)
+    a = _sorted_run(rng, 3 * tile + 1, 16, kw, 3)
+    b = _sorted_run(rng, 2 * tile - 1, 16, kw, 3)
+    want = sort.merge_sorted_lanes(a, b, kw)
+    got = _launched("sort", lambda: sort.merge_sorted_lanes(
+        tuple(x.to(cuda) for x in a), tuple(x.to(cuda) for x in b), kw))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("W,n_pay", [(2, 5), (4, 1), (8, 2)])
+def test_merge_strided_words(cuda, W, n_pay):
+    """Key lanes read in place from row-major (N, W) words (and a payload
+    lane that is a strided column too), written back as (N, W)."""
+    rng = np.random.default_rng(W)
+    a = _sorted_run(rng, 9001, W + n_pay, W, 2000)
+    b = _sorted_run(rng, 5003, W + n_pay, W, 2000)
+    want = sort.merge_sorted_lanes(a, b, W)
+    wa, wb = (torch.stack(x, 1).to(cuda) for x in (a, b))
+    got = _launched("sort", lambda: sort.merge_sorted_lanes(
+        tuple(wa[:, i] for i in range(W + n_pay)), tuple(wb[:, i] for i in range(W + n_pay)), W,
+        as_words=True))
+    assert got[0].shape == (14004, W) and got[0].is_contiguous()
+    _same(tuple(got[0].T) + tuple(got[1:]), want)
+
+
+def test_merge_1120_tiles(cuda):
+    """The k = 21 merge-tree shape: 7,340,032 + 29,360,128 rows, kw = 2."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1120)
+    runs = []
+    for n in (7_340_032, 29_360_128):
+        keys = torch.randint(-2**31, 2**31, (n, 2), dtype=torch.int32, device=cuda, generator=gen)
+        keys[: n // 3, 0] = keys[: n // 3, 0] & 0xFF  # equal keys across the runs
+        runs.append(lexsort_lanes((keys[:, 0], keys[:, 1])))
+    want = sort._merge_plain(runs[0], runs[1], 2, False)
+    got = _launched("sort", lambda: sort.merge_sorted_lanes(runs[0], runs[1], 2))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def _packed_run(rng, k, n, n_keys):
@@ -299,9 +344,92 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sort.merge_sorted_lanes((x,), (x.cpu(),), 1)
     with pytest.raises(TypeError, match="expected torch.int32"):
         sort.merge_sorted_lanes((x.long(),), (x.long(),), 1)
-    with pytest.raises(ValueError, match="contiguous"):
-        compact.compact_classes((torch.zeros((8, 2), dtype=torch.int32, device=cuda)[:, 0],), x, 2,
-                                (0,))
+    with pytest.raises(ValueError, match="1-D lane"):
+        compact.compact_classes((torch.zeros((8, 2), dtype=torch.int32, device=cuda),), x, 2, (0,))
+    with pytest.raises(TypeError, match="compact flags"):
+        compact.compact_classes((x,), x.float(), 2, (0,))
+
+
+def _compact_case(rng, n, n_lanes):
+    return tuple(_i32(rng.integers(0, 1 << 32, n, dtype=np.uint64)) for _ in range(n_lanes))
+
+
+def _compact_same(cuda, lanes, flags, n_classes, emit, layouts, fills):
+    """compact_lanes with tails filled: every output row is defined, so the
+    whole outputs and the counts must equal the plain version's."""
+    want, wn = compact.compact_lanes(lanes, flags, n_classes, emit, layouts, fills)
+    got, gn = _launched("compact", lambda: compact.compact_lanes(
+        tuple(x.to(cuda) for x in lanes), flags.to(cuda), n_classes, emit, layouts, fills))
+    assert torch.equal(gn.cpu(), wn)
+    for g, w in zip(got, want):
+        _same(g, w)
+    return wn
+
+
+@pytest.mark.parametrize("n", [1000 * 4096 + 123, 4096 * 3])
+def test_compact_look_back_many_tiles(cuda, n):
+    """Over 1,000 look-back tiles (and an exact tile multiple), 3 classes,
+    two emitted with fills; a tenth of the flags outside [0, 3) (no class)."""
+    rng = np.random.default_rng(n)
+    lanes = _compact_case(rng, n, 3)
+    fl = rng.integers(0, 3, n).astype(np.int32)
+    fl[rng.random(n) < 0.1] = 7
+    layouts = (((0,), (1,), (2,)), ((2,), (0,)))
+    fills = ((-1, 0, 5), (0x1234, -1))
+    wn = _compact_same(cuda, lanes, torch.from_numpy(fl), 3, (2, 0), layouts, fills)
+    assert 0 < int(wn.sum()) < n
+
+
+@pytest.mark.parametrize("frac", [0.0, 1.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8])
+def test_compact_keep_mask(cuda, frac, dtype):
+    """A bool or uint8 keep mask (nonzero bytes other than 1 too): all rows
+    kept, none kept, and a third."""
+    rng = np.random.default_rng(int(frac * 10))
+    n = 70001
+    lanes = _compact_case(rng, n, 2)
+    keep = rng.random(n) < frac
+    mask = torch.from_numpy(keep) if dtype == torch.bool else torch.from_numpy(
+        keep * rng.integers(1, 256, n)).to(torch.uint8)
+    wn = _compact_same(cuda, lanes, mask, 2, (0,), (((0,), (1,)),), ((-1, 0),))
+    assert int(wn[0]) == int(keep.sum())
+
+
+def test_compact_four_classes_with_tails(cuda):
+    """Four classes, all emitted, each with its own fills: every class's tail
+    is counted from the end of its own outputs."""
+    rng = np.random.default_rng(4)
+    n = 50_001
+    lanes = _compact_case(rng, n, 4)
+    flags = torch.from_numpy(rng.choice(4, n, p=[0.05, 0.15, 0.3, 0.5]).astype(np.int32))
+    layouts = tuple(tuple((i,) for i in range(c + 1)) for c in range(4))
+    fills = tuple(tuple(range(10 * c, 10 * c + c + 1)) for c in range(4))
+    _compact_same(cuda, lanes, flags, 4, (3, 1, 0, 2), (layouts[3], layouts[1], layouts[0],
+                                                       layouts[2]), (fills[3], fills[1],
+                                                                     fills[0], fills[2]))
+
+
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_compact_strided_words(cuda, W):
+    """(N, W) row-major words read in place and written as one (N, W) group,
+    with constant-0 columns (the finalize layout) and payload lanes."""
+    rng = np.random.default_rng(W)
+    n = 30_000
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (n, W), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    pay = _compact_case(rng, n, 2)
+    lanes = tuple(words[:, i] for i in range(W)) + pay
+    flags = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
+    for group in (tuple(range(W)), tuple(range(W - 1)) + (None,)):
+        layout = (group, (W,), (W + 1,))
+        want, wn = compact.compact_lanes(lanes, flags, 2, (1,), (layout,), ((-1, 0, 0),))
+        wd = words.to(cuda)
+        got, gn = _launched("compact", lambda: compact.compact_lanes(
+            tuple(wd[:, i] for i in range(W)) + tuple(x.to(cuda) for x in pay), flags.to(cuda),
+            2, (1,), (layout,), ((-1, 0, 0),)))
+        assert got[0][0].shape == (n, W) and got[0][0].is_contiguous()
+        assert torch.equal(gn.cpu(), wn)
+        _same(got[0], want[0])
 
 
 def _ssw_pairs(rng, B, Lq, Lr, err=0.05):

@@ -42,13 +42,17 @@ def _t(a):
 
 def _merged(tw, qw, pay, n_out):
     """ops/lookup.py's merged rows, padded to n_out (a multiple of the
-    reference kernel's tile)."""
+    reference kernel's tile) with pad rows the reference's way: all-ones
+    keys and source IDX_MASK (query flag clear, idx past any valid row)."""
     T, Q = len(tw), len(qw)
     tsrc = torch.arange(T, dtype=torch.int64) | (torch.from_numpy(pay) << 26)
     qsrc = torch.arange(Q, dtype=torch.int64) | PJ.QUERY_BIT
     a = (_t(tw[:, 0]), _t(tw[:, 1]), tsrc.to(torch.int32))
     b = lexsort_lanes((_t(qw[:, 0]), _t(qw[:, 1]), qsrc.to(torch.int32)), 2)
-    return PS.merge_sorted_lanes(a, b, 2, n_out, pad_fill=(PJ.IDX_MASK,))
+    merged = PS.merge_sorted_lanes(a, b, 2)
+    pads = n_out - (T + Q)
+    return tuple(torch.cat([x, torch.full((pads,), f, dtype=torch.int32)])
+                 for x, f in zip(merged, (-1, -1, PJ.IDX_MASK)))
 
 
 @pytest.mark.parametrize("T,Q,n_valid,heavy,max_dup", [

@@ -63,20 +63,54 @@ def _rows_sorted(x):
 
 
 def test_tiled_pad_fill():
-    """Against the reference's merge_sorted_lanes_tiled (odd lengths,
-    sentinels, bit-31 keys): the same length, key lanes equal row for row,
-    and the same rows within each key (the bitonic merge orders equal keys
-    its own way; the join and ctg rules never observe it)."""
+    """The untiled merge (na + nb rows, no pads) against the first na + nb
+    rows of the reference's merge_sorted_lanes_tiled (odd lengths,
+    sentinels, bit-31 keys): key lanes equal row for row, and the same rows
+    within each key once the reference's pad rows are set aside (the
+    bitonic merge orders equal keys its own way, so pads may sit among the
+    all-ones sentinels; the join and ctg rules never observe it)."""
     rng = np.random.default_rng(9)
     a = _run(rng, 701, 3, 2, sent=5)
     b = _run(rng, 899, 3, 2, sent=3, dup_from=a)
-    got = _np(PS.merge_sorted_lanes_tiled(_lanes(a), _lanes(b), 2, pad_fill=(0x01FFFFFF,)))
+    got = _np(PS.merge_sorted_lanes(_lanes(a), _lanes(b), 2))
     want = np.stack([np.asarray(x) for x in merge_sorted_lanes_tiled(
         tuple(jnp.asarray(a[:, i]) for i in range(3)), tuple(jnp.asarray(b[:, i]) for i in range(3)),
         kw=2, pad_fill=(0x01FFFFFF,), interpret=True)], 1)
-    assert got.shape == want.shape == (2048, 3) and got.shape[0] % PS.TILE == 0
-    assert np.array_equal(got[:, :2], want[:, :2])
-    assert np.array_equal(_rows_sorted(got), _rows_sorted(want))
-    plain = _np(PS.merge_sorted_lanes(_lanes(a), _lanes(b), 2))
-    assert np.array_equal(got[:1600], plain)
-    assert (got[1600:, :2] == 0xFFFFFFFF).all() and (got[1600:, 2] == 0x01FFFFFF).all()
+    assert got.shape == (1600, 3) and want.shape == (2048, 3)
+    assert np.array_equal(got[:, :2], want[:1600, :2])
+    pad = np.array([0xFFFFFFFF, 0xFFFFFFFF, 0x01FFFFFF], np.uint32)
+    is_pad = (want == pad).all(1)
+    assert is_pad.sum() == 448 and not (got == pad).all(1).any()
+    assert np.array_equal(_rows_sorted(got), _rows_sorted(want[~is_pad]))
+
+
+@pytest.mark.parametrize("na,nb,kw,tile", [(0, 37, 2, 8), (33, 0, 1, 4), (700, 900, 2, 64),
+                                           (1000, 3095, 3, 1024), (4096, 4096, 1, 4096)])
+def test_merge_path_splits_count(na, nb, kw, tile):
+    """The plain version of the sort kernel's partition: at every tile
+    boundary, the rows of `a` it reports are the rows of `a` that a stable
+    lexsort of the concatenation puts before that boundary (many equal keys
+    across the two runs, and all-ones sentinels)."""
+    rng = np.random.default_rng(na + nb + tile)
+    a = _run(rng, na, kw + 1, kw, sent=na // 10)
+    b = _run(rng, nb, kw + 1, kw, sent=nb // 7, dup_from=a)
+    got = PS.merge_path_splits(_lanes(a), _lanes(b), kw, tile).numpy()
+    cat = np.concatenate([a, b])
+    order = np.lexsort(tuple(cat[:, i] for i in range(kw - 1, -1, -1)))  # stable
+    from_a = np.concatenate([[0], np.cumsum(order < na)])
+    bounds = np.minimum(np.arange(-(-(na + nb) // tile) + 1) * tile, na + nb)
+    assert np.array_equal(got, from_a[bounds])
+
+
+def test_merge_as_words():
+    """as_words returns the key lanes as one row-major (N, kw) tensor and
+    reads strided key lanes in place: the same rows as the lane tuple."""
+    rng = np.random.default_rng(5)
+    a = _run(rng, 300, 5, 3, sent=4)
+    b = _run(rng, 211, 5, 3, sent=9, dup_from=a)
+    wa, wb = torch.from_numpy(a.view(np.int32).copy()), torch.from_numpy(b.view(np.int32).copy())
+    words, *pay = PS.merge_sorted_lanes(tuple(wa[:, i] for i in range(5)),
+                                        tuple(wb[:, i] for i in range(5)), 3, as_words=True)
+    assert words.shape == (511, 3) and words.is_contiguous() and len(pay) == 2
+    plain = _np(PS.merge_sorted_lanes(_lanes(a), _lanes(b), 3))
+    assert np.array_equal(np.concatenate([_np(tuple(words.T)), _np(pay)], 1), plain)
