@@ -4,6 +4,7 @@
     python3 chip_smoke.py                          # every phase, one GPU
     python3 chip_smoke.py --only callers [DIR]     # phase 2's whole-call rows
     python3 chip_smoke.py --only ladder [DIR]      # phase 5, kernels metered
+    python3 chip_smoke.py --only kernels [DIR]     # phase 2's extract and ssw rows
 
 (DIR: the checkout whose mhm2_proxy_tpu_torch to run, default this one, so
 that another tree, e.g. a parent commit unpacked beside it, is timed on the
@@ -17,10 +18,13 @@ Phases (any failure raises, and the script exits non-zero):
      main path's shapes, bit-exact (integers, tolerance 0), with times, the
      bound of each measurement (the larger of its bytes over the HBM rate
      and its integer operations over the card's int32 rate) and, where one
-     PyTorch call computes the same function, that call's time; the ssw
-     kernel on 65,536 read/window pairs under four scoring profiles; the
-     minimizer kernel on 131,072-read blocks at k = 21, 33, 77, 99 with 4
-     shards, a (2048, 2048) contig-window block and 4096 shards;
+     PyTorch call computes the same function, that call's time; the
+     extract kernel on read blocks at k = 21-77 (also 150 bp rows) and
+     contig windows; the ssw kernel on 65,536 read/window pairs under four
+     scoring profiles, one past a signed byte, and at 2 x 150 bp reads
+     (Lq 150, Lr 214); the minimizer kernel on 131,072-read blocks at
+     k = 21, 33, 77, 99 with 4 shards, a (2048, 2048) contig-window block
+     and 4096 shards;
      table_lookup on CUDA against the CPU at a 30M-row index; the count
      store + traversal on CUDA against the same on the CPU at
      k = 21, 33, 55, 63, 77, 99 (every instantiation of the kernels' templates),
@@ -51,7 +55,7 @@ Phases (any failure raises, and the script exits non-zero):
      counting log (blocks, raw rows, split-LSM collapses, cascade merges and
      deferrals, ranged pieces, table rows, peak device memory), all six
      contigging launch counts > 0, each kernel's device ms over the ladder
-     (a CUDA event pair around every call of its wrapper), at least one
+     (a CUDA event pair around every call of its C entry), at least one
      collapse, one ranged read fold and one ranged ctg-rule fold, and >= 95%
      exact-substring bases;
   6. store-level equality on that community's reads plus contig windows cut
@@ -75,7 +79,8 @@ Phases (any failure raises, and the script exits non-zero):
      >= 95% exact-substring bases; and how many printed contigs differ from
      phase 5's (only cycle break points may).
 Prints the kernels' JSON summary (launch counts of phase 5, ssw's of phase
-7, minimizer's of phase 8; ladder_ms: phase 5's device ms), then the card line, then as the last line
+7, minimizer's of phase 8; ladder_ms: phase 5's device ms, minimizer's of
+phase 8, metered the same way), then the card line, then as the last line
 {"ok": true, "device": {...}}. Without CUDA it exits 2, and without the
 mhm2_proxy_tpu_torch package beside it 3, printing no result. Work files go
 to chip_smoke_work/ next to this script (removed at the end).
@@ -134,13 +139,12 @@ OPS_PER_ROW = dict(
     finalize=32,  # 9 one-hot decodes and sums, the ext calls, the purge test
     compact=3,  # class test, count, destination
     scan_packed=28,  # 9 one-hot decodes and sums, the key compare, 5 packs
-    # the recurrence of csrc/ssw.cu's note, with sm_90's DPX forms as one
-    # instruction each: substitution 4 (the ambiguity predicate, the code
-    # compare, two selects); E 2 (ep - ge, add-max); Hn 1 (add-max with the
-    # 0 floor); H 1 (max with f); F 2 (f - ge, add-max); best 2 (max with
-    # its predicate, one select of the packed cell index). Plain int32 ALU
-    # code needs 18 (E 3, Hn 3, F 3, best 4 with the two index selects).
-    ssw=12,
+    # the least the recurrence of csrc/ssw.cu's note needs, with sm_90's DPX
+    # forms and a byte permute as one instruction each: substitution 1 (a
+    # permute of the row's score bytes); E 2 (ep - ge, add-max); Hn 1
+    # (add-max with the 0 floor); H 1 and F 1 (add-max each, with f carried
+    # as f + i ge); best 1.5 (the packed key, and half of a 3-way max)
+    ssw=7.5,
 )
 
 
@@ -153,16 +157,15 @@ K21_33_KERNELS = ("extract", "sort", "finalize", "compact", "join")
 SHARDED_KERNELS = ("minimizer", "extract", "sort", "scan", "compact")
 
 
-# the main path's kernel wrappers (ops module, its CUDA wrappers), each
-# metered with CUDA event pairs over phase 5's ladder
-MAIN_PATH_WRAPPERS = {
-    "extract": ("extract", ("_extract_cuda",)),
-    "sort": ("sort", ("_merge_cuda",)),
-    "finalize": ("finalize", ("_scan_purge_cuda",)),
-    "compact": ("compact", ("_compact_cuda",)),
-    "join": ("join", ("_propagate_cuda", "_propagate_sep_cuda")),
-    "scan": ("scan", ("_scan_lanes_cuda", "_scan_packed_cuda")),
+# each hand kernel's C entry points (csrc/, called through kernels.lib())
+C_ENTRIES = {
+    "mhm2_extract": "extract", "mhm2_merge": "sort", "mhm2_finalize": "finalize",
+    "mhm2_compact": "compact", "mhm2_join": "join", "mhm2_join_sep": "join",
+    "mhm2_scan_lanes": "scan", "mhm2_scan_packed": "scan", "mhm2_ssw": "ssw",
+    "mhm2_minimizer": "minimizer",
 }
+# the kernels that phase 5's ladder launches
+LADDER_KERNELS = ("extract", "sort", "finalize", "compact", "join", "scan")
 
 
 def log(*a):
@@ -319,19 +322,34 @@ def parse_run_log(path):
 # ---------------------------------------------------------------------------
 
 
+# cuda_ms times at least this many ms of back-to-back calls: a mean over
+# three calls of a sub-0.1 ms kernel also spans the host's launch of the
+# first call
+TIMED_MIN_MS = 20.0
+
+
 def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean device ms of fn over back-to-back calls after a warm-up: `reps`
+    calls, or, when those take less than TIMED_MIN_MS in all, as many as
+    fill it (at most 200)."""
     import torch
+
+    def timed(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / n
 
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    ms = timed(reps)
+    if ms * reps < TIMED_MIN_MS:
+        ms = timed(min(200, max(reps, int(TIMED_MIN_MS / max(ms, 1e-3)) + 1)))
+    return ms
 
 
 def nbytes(*tensors) -> int:
@@ -433,15 +451,10 @@ def sim_read_block(genome_codes, B, L, read_len, gen):
     return codes, qual, lens
 
 
-def phase_kernels(results):
-    import torch
-
-    from mhm2_proxy_tpu_torch.ops import compact, count, extract, finalize, join, lookup, sort
-    from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes, narrow
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(20260817)
-    dev = "cuda"
+def make_recorder(results):
+    """record(name, err, ms, plain_ms, what, io_bytes, ops, library_ms=None):
+    logs one phase-2 measurement with its bound, fails on any disagreement,
+    and keeps each kernel's first (main-path shape) row in `results`."""
     int_rate = int32_ops_per_s()
     log(f"[bound] HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s, int32 {int_rate / 1e12:.3f} Tops/s")
 
@@ -458,11 +471,22 @@ def phase_kernels(results):
             r.update(ms=ms, plain_ms=plain_ms, shape=what, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms)
 
-    # extract: read blocks (131072, 128), packed, k = 21 and 33; contig
-    # windows (2048, 2048) in the record layout
+    return record
+
+
+def phase_extract(record, gen):
+    """The extract kernel against its plain version: read blocks (131072,
+    128), packed, k = 21 and 33; contig windows (2048, 2048) in the record
+    layout; (131072, 128) at k = 63 and 77 (record); and 150 bp reads
+    unpadded, (131072, 150) k = 21 packed (rows not 16-byte multiples)."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import extract
+
+    dev = "cuda"
     for k, (B, L), packed in ((21, (131072, 128), True), (33, (131072, 128), True),
                               (33, (2048, 2048), False), (63, (131072, 128), False),
-                              (77, (131072, 128), False)):
+                              (77, (131072, 128), False), (21, (131072, 150), True)):
         codes = torch.randint(0, 5, (B, L), dtype=torch.uint8, device=dev, generator=gen)
         qual = torch.rand((B, L), device=dev, generator=gen) > 0.05
         lens = torch.randint(k - 2, L + 1, (B,), dtype=torch.int32, device=dev, generator=gen)
@@ -477,6 +501,19 @@ def phase_kernels(results):
                f"({B}, {L}) k={k} {'packed' if packed else 'record'}",
                nbytes(codes, qual, lens, out), ops)
         del out
+
+
+def phase_kernels(results):
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import compact, count, extract, finalize, join, lookup, sort
+    from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes, narrow
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20260817)
+    dev = "cuda"
+    record = make_recorder(results)
+    phase_extract(record, gen)
 
     # sort: the 1120-tile merge (7,340,032 + 29,360,128 rows = 36,700,160),
     # two odd-length merges, and a kw = 4 + payload merge at a join shape
@@ -843,22 +880,29 @@ def phase_ssw(record, gen):
     """The ssw kernel against its plain version at the post-asm shape of the
     community's 100 bp reads: 65,536 pairs, Lq = 100, Lr = 164, under the
     reference's three scoring profiles and one with gap_open < gap_extend
-    (tests/torch_common.py)."""
+    (tests/torch_common.py), and one whose mismatch score does not fit a
+    signed byte (the kernel's compare-and-select substitution); then 2 x
+    150 bp reads, Lq = 150, Lr = 214, whose ragged r_len ends strips at
+    every offset."""
     from mhm2_proxy_tpu_torch.ops import ssw
 
-    q, ql, r, rl = ssw_pairs(65536, 100, 164, gen)
-    cells = int((ql.clamp(0, 100).long() * rl.clamp(0, 164).long()).sum())
-    for sc in repo_module("tests", "torch_common").SCORINGS_ALL:
-        kern = lambda: ssw._sw_ends_cuda(q, ql, r, rl, **sc)  # noqa: E731
-        plain = lambda: ssw._sw_ends_plain(q, ql, r, rl, **sc)  # noqa: E731
-        out = kern()
-        err = max_abs_err(out, plain())
-        ms = cuda_ms(kern)
-        what = (f"65536 pairs, Lq=100 Lr=164, go={sc['gap_open']} ge={sc['gap_extend']}: "
-                f"{cells} cells, {cells / ms / 1e6:.1f} GCUPS")
-        check(int((out[0] > 0).sum()) > 60000, f"ssw: too few alignments ({what})")
-        record("ssw", err, ms, cuda_ms(plain), what, nbytes(q, ql, r, rl, out),
-               cells * OPS_PER_ROW["ssw"])
+    common = repo_module("tests", "torch_common")
+    scorings, wide = common.SCORINGS_ALL, common.SCORING_WIDE
+    for Lq, Lr, profiles in ((100, 164, scorings + [wide]), (150, 214, scorings[:1])):
+        q, ql, r, rl = ssw_pairs(65536, Lq, Lr, gen)
+        cells = int((ql.clamp(0, Lq).long() * rl.clamp(0, Lr).long()).sum())
+        for sc in profiles:
+            kern = lambda: ssw._sw_ends_cuda(q, ql, r, rl, **sc)  # noqa: E731
+            plain = lambda: ssw._sw_ends_plain(q, ql, r, rl, **sc)  # noqa: E731
+            out = kern()
+            err = max_abs_err(out, plain())
+            ms = cuda_ms(kern)
+            what = (f"65536 pairs, Lq={Lq} Lr={Lr}, go={sc['gap_open']} ge={sc['gap_extend']}"
+                    f"{' mismatch=200' if sc is wide else ''}: {cells} cells, "
+                    f"{cells / ms / 1e6:.1f} GCUPS")
+            check(int((out[0] > 0).sum()) > 60000, f"ssw: too few alignments ({what})")
+            record("ssw", err, ms, cuda_ms(plain), what, nbytes(q, ql, r, rl, out),
+                   int(cells * OPS_PER_ROW["ssw"]))
 
 
 def phase_lookup(gen):
@@ -959,53 +1003,54 @@ def phase_callers(seed: int = 20261016):
     return times
 
 
-class kernel_meter:
-    """Within the block, a CUDA event pair around every call of the given
-    kernel wrappers (name -> (ops module, wrapper names)), as phase 7 meters
-    ssw. A pair spans what the stream ran between its two records: the
-    wrapper's launches, and any gap in which the stream waited for the
-    host. totals() synchronizes and gives, per kernel, (wrapper calls,
-    device ms)."""
-
-    def __init__(self, wrappers):
-        self.wrappers, self.events, self.saved = wrappers, {}, []
+class launch_meter:
+    """Within the block, a CUDA event pair right around every call of a hand
+    kernel's C entry point (C_ENTRIES, reached through kernels.lib()). A
+    pair spans what the stream ran between its records: the entry's
+    launches, and, when the stream had run dry, the host's time to launch
+    them (microseconds), but none of the wrapper's own host work
+    (allocations, checks). totals() synchronizes and gives, per kernel,
+    (entry calls, device ms)."""
 
     def __enter__(self):
-        import importlib
-
-        for name, (mod, fns) in self.wrappers.items():
-            m = importlib.import_module(f"mhm2_proxy_tpu_torch.ops.{mod}")
-            events = self.events.setdefault(name, [])
-            for fn in fns:
-                orig = getattr(m, fn)
-                self.saved.append((m, fn, orig))
-                setattr(m, fn, self._metered(orig, events))
-        return self
-
-    @staticmethod
-    def _metered(orig, events):
         import torch
 
-        def metered(*args, **kwargs):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            res = orig(*args, **kwargs)
-            ev[1].record()
-            events.append(ev)
-            return res
+        from mhm2_proxy_tpu_torch.ops import kernels
 
-        return metered
+        lib, events = kernels.lib(), {}
+        self.kernels, self.orig, self.events = kernels, kernels.lib, events
+
+        class MeteredLib:
+            def __getattr__(self, entry):
+                fn = getattr(lib, entry)
+                if entry not in C_ENTRIES:
+                    return fn
+
+                def call(*args):
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                    rc = fn(*args)
+                    ev[1].record()
+                    events.setdefault(C_ENTRIES[entry], []).append(ev)
+                    return rc
+
+                return call
+
+        metered = MeteredLib()
+        kernels.lib = lambda: metered
+        return self
 
     def __exit__(self, *exc):
-        for m, fn, orig in self.saved:
-            setattr(m, fn, orig)
+        self.kernels.lib = self.orig
 
     def totals(self):
         import torch
 
         torch.cuda.synchronize()
-        return {name: (len(ev), sum(e0.elapsed_time(e1) for e0, e1 in ev))
-                for name, ev in self.events.items()}
+        return {name: (len(self.events.get(name, ())),
+                       sum(e0.elapsed_time(e1) for e0, e1 in self.events.get(name, ())))
+                for name in set(C_ENTRIES.values())}
 
 
 def phase_devices():
@@ -1278,10 +1323,10 @@ def phase_arctic(work):
     from mhm2_proxy_tpu_torch.kcount import KmerCountStore
 
     k21 = k21_table_copy(KmerCountStore, lambda table: table.to_numpy())
-    meter = kernel_meter(MAIN_PATH_WRAPPERS)
-    with k21, meter:
+    with k21, launch_meter() as meter:
         wall, counts, _ = run_cli(fq, out)
-    ladder = meter.totals()
+    totals = meter.totals()
+    ladder = {name: totals[name] for name in LADDER_KERNELS}
     rounds, modules = parse_run_log(os.path.join(out, "mhm2_torch.log"))
     for k, r in sorted(rounds.items()):
         log(f"[arctic] k={k}: {r['blocks']} blocks, raw rows {r['raw_rows']} (largest merged "
@@ -1295,8 +1340,8 @@ def phase_arctic(work):
     log(f"[arctic] wall {wall:.2f} s ({k21.seconds:.2f} s of it copying the k=21 table to the "
         f"host for phase 8's check), launches {counts}")
     for name, (calls, ms) in ladder.items():
-        log(f"[arctic] kernel {name}: {counts[name]} launches, {calls} wrapper calls, "
-            f"{ms:.2f} device ms over the ladder (CUDA event pairs around the wrapper)")
+        log(f"[arctic] kernel {name}: {counts[name]} launches, {calls} C entry calls, "
+            f"{ms:.2f} device ms over the ladder (CUDA event pairs around the C entry)")
     check(sorted(rounds) == [21, 33, 55, 77, 99], f"rounds run: {sorted(rounds)}")
     check(all(counts[k] > 0 for k in counts if k not in ("ssw", "minimizer")),
           f"a kernel of the path never launched: {counts}")
@@ -1373,8 +1418,9 @@ def phase_sharded_arctic(work, fq, gens, single_out, single_k21):
 
     out = os.path.join(work, "arctic12_shards4")
     k21 = k21_table_copy(ShardedCounter, sharded_to_host)
-    with k21:
+    with k21, launch_meter() as meter:
         wall, counts, asm = run_cli(fq, out, None, ("--shards", "4"))
+    m_calls, m_ms = meter.totals()["minimizer"]
     pat = re.compile(r"k=\d+: (counted|exchange|traversal ->|stitch \{|sharded stitch"
                      r"|sharded count)")
     for line in open(os.path.join(out, "mhm2_torch.log")):
@@ -1397,6 +1443,8 @@ def phase_sharded_arctic(work, fq, gens, single_out, single_k21):
         log(f"[sharded] stage {name}: {secs:.2f} s")
     log(f"[sharded] wall {wall:.2f} s ({k21.seconds:.2f} s of it copying the k=21 table to the "
         f"host for the check below), launches {counts}")
+    log(f"[sharded] kernel minimizer: {counts['minimizer']} launches, {m_calls} C entry calls, "
+        f"{m_ms:.2f} device ms over the ladder (CUDA event pairs around the C entry)")
     check(sorted(rs) == [21, 33, 55, 77, 99], f"rounds run: {sorted(rs)}")
     check(all(counts[k] > 0 for k in SHARDED_KERNELS), f"a sharded-path kernel never ran: {counts}")
     t0 = time.perf_counter()
@@ -1416,7 +1464,7 @@ def phase_sharded_arctic(work, fq, gens, single_out, single_k21):
         f"{differ} of {len(seqs)} printed contigs are not in phase 5's FASTA "
         f"({len(single)} contigs)")
     check(tot > 0 and frac >= 0.95, frac)
-    return counts
+    return counts, m_ms
 
 
 def phase_post_asm(fq, out):
@@ -1430,28 +1478,23 @@ def phase_post_asm(fq, out):
     from mhm2_proxy_tpu_torch.models.post_asm import align_reads_to_contigs, build_contig_index
     from mhm2_proxy_tpu_torch.ops import ssw
 
-    # each launch's DP cells (q_len x r_len a pair) and a CUDA event pair
-    # around the kernel's wrapper, for GCUPS
+    # each launch's DP cells (q_len x r_len a pair), for GCUPS, and the
+    # kernel's device time
     metered, launch = [], ssw._sw_ends_cuda
 
-    def sw_ends_metered(query, q_len, ref, r_len, **scoring):
+    def sw_ends_counted(query, q_len, ref, r_len, **scoring):
         Lq, Lr = query.shape[1], ref.shape[1]
-        cells = (q_len.clamp(0, Lq).long() * r_len.clamp(0, Lr).long()).sum()
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        res = launch(query, q_len, ref, r_len, **scoring)
-        ev[1].record()
-        metered.append((cells, *ev))
-        return res
+        metered.append((q_len.clamp(0, Lq).long() * r_len.clamp(0, Lr).long()).sum())
+        return launch(query, q_len, ref, r_len, **scoring)
 
-    ssw._sw_ends_cuda = sw_ends_metered
+    ssw._sw_ends_cuda = sw_ends_counted
     try:
-        wall, counts, asm = run_cli(fq, out, None, ["--post-asm-only"] + POST_ASM, fresh=False)
+        with launch_meter() as meter:
+            wall, counts, asm = run_cli(fq, out, None, ["--post-asm-only"] + POST_ASM, fresh=False)
     finally:
         ssw._sw_ends_cuda = launch
-    torch.cuda.synchronize()
-    cells = sum(int(c) for c, _e0, _e1 in metered)
-    kernel_ms = sum(e0.elapsed_time(e1) for _c, e0, e1 in metered)
+    cells = sum(int(c) for c in metered)
+    _calls, kernel_ms = meter.totals()["ssw"]
     stats = timings = ""
     for line in open(os.path.join(out, "mhm2_torch.log")):
         if "post-asm-align: {" in line:
@@ -1460,7 +1503,8 @@ def phase_post_asm(fq, out):
             timings = line.split("timings: ", 1)[1].strip()
     log(f"[post-asm] {len(asm.contigs)} contigs, {len(asm.packed_reads)} reads: {stats}")
     log(f"[post-asm] wall {wall:.2f} s ({timings}); ssw launches {counts['ssw']}, {cells} "
-        f"cells in {kernel_ms:.2f} kernel ms: {cells / kernel_ms / 1e6:.1f} GCUPS")
+        f"cells in {kernel_ms:.2f} kernel ms (CUDA event pairs around the C entry): "
+        f"{cells / kernel_ms / 1e6:.1f} GCUPS")
     check(counts["ssw"] > 0 and cells > 0, f"ssw never launched: {counts}")
     m = post_asm_gate(out)
     log(f"[post-asm] structural check passed: {m}")
@@ -1574,12 +1618,14 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no CUDA device", file=sys.stderr)
         return 2
-    # `--only callers|ladder [DIR]`: only phase_callers, or only phase 5 (the
-    # 27 Mbp ladder, its kernels metered), on the package of DIR (default
-    # this checkout), e.g. a parent tree unpacked beside it
+    # `--only callers|ladder|kernels [DIR]`: only phase_callers, only phase 5
+    # (the 27 Mbp ladder, its kernels metered), or only phase 2's extract and
+    # ssw rows, on the package of DIR (default this checkout), e.g. a parent
+    # tree unpacked beside it
     only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
-    if argv and only not in ("callers", "ladder"):
-        print("usage: chip_smoke.py [--only callers|ladder [PACKAGE_DIR]]", file=sys.stderr)
+    if argv and only not in ("callers", "ladder", "kernels"):
+        print("usage: chip_smoke.py [--only callers|ladder|kernels [PACKAGE_DIR]]",
+              file=sys.stderr)
         return 2
     root = os.path.abspath(argv[2]) if len(argv) > 2 else ROOT
     if not os.path.isdir(os.path.join(root, "mhm2_proxy_tpu_torch")):
@@ -1590,8 +1636,19 @@ def main(argv):
     sys.path.insert(0, root)
     if only:
         log(f"[card] {card_line()}; package {root}")
+        # the kernels' build first, so that no metered call spans it
+        from mhm2_proxy_tpu_torch.ops import _build
+
+        _build.load()
         if only == "callers":
             phase_callers()
+            return 0
+        if only == "kernels":
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(20260817)
+            record = make_recorder({})
+            phase_extract(record, gen)
+            phase_ssw(record, gen)
             return 0
         work = os.path.join(ROOT, "chip_smoke_work")
         try:
@@ -1623,7 +1680,8 @@ def main(argv):
         fq, gens, counts, out, k21, ladder_ms = phase_arctic(work)
         phase_store_equality(fq, gens)
         counts["ssw"] = phase_post_asm(fq, out)["ssw"]
-        counts["minimizer"] = phase_sharded_arctic(work, fq, gens, out, k21)["minimizer"]
+        sharded_counts, ladder_ms["minimizer"] = phase_sharded_arctic(work, fq, gens, out, k21)
+        counts["minimizer"] = sharded_counts["minimizer"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = []

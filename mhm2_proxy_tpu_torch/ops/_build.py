@@ -51,7 +51,7 @@ _SIGNATURES = {
     "mhm2_join_sep": [P, I32, P, P, I64, P, I32, P, I64, P],
     "mhm2_scan_lanes": [P, I32, P, I64, I32, P, P, P, P, P],
     "mhm2_scan_packed": [P, I32, I64, U32, I32, P, P, P, P, P],
-    "mhm2_ssw": [P, P, P, P, I64, I32, I32, I32, I32, I32, I32, I32, P, P, P, P],
+    "mhm2_ssw": [P, P, P, P, I64, I32, I32, I32, I32, I32, I32, I32, P, P, P],
     "mhm2_minimizer": [P, I64, I32, I32, I32, U32, P, P],
 }
 

@@ -12,7 +12,8 @@ position. Begin positions come from a second pass over the reversed
 prefixes that end at the best cell.
 
 sw_align_ends is the kernel wrapper: for CUDA tensors it launches
-csrc/ssw.cu (one pair per thread, any Lq and Lr); for CPU tensors it runs
+csrc/ssw.cu (one pair per thread, the DP in strips of ref columns held
+in registers, any Lq and Lr); for CPU tensors it runs
 the plain version, the reference's XLA column loop
 (`_sw_align_ends_xla`, ssw.py:84-132) with the in-column F as the log-step
 max-decay doubling of the Pallas kernel (pallas_ssw.py:76-81).
@@ -110,6 +111,10 @@ def _sw_ends_plain(query, q_len, ref, r_len, match, mismatch, gap_open, gap_exte
 
 
 def _sw_ends_cuda(query, q_len, ref, r_len, match, mismatch, gap_open, gap_extend, ambiguity):
+    """The kernel on CUDA tensors. It keeps a row's best as score x R +
+    column tie-break in an int32 (R: csrc/ssw.cu's strip width), so it
+    refuses, as a failed launch, a scoring whose best possible score, match
+    x min(Lq, Lr), reaches 2^31 / R."""
     kernels.require(query, torch.uint8, "ssw query")
     kernels.require(ref, torch.uint8, "ssw ref")
     kernels.require(q_len, torch.int32, "ssw q_len")
@@ -120,15 +125,12 @@ def _sw_ends_cuda(query, q_len, ref, r_len, match, mismatch, gap_open, gap_exten
     out = torch.empty((3, B), dtype=torch.int32, device=dev)
     if B == 0:
         return out[0], out[1], out[2]
-    # (L, B) layouts: a warp's 32 pairs read one row of 32 neighbouring bytes
-    qT = query.t().contiguous()
-    rT = ref.t().contiguous()
-    H = torch.empty((max(Lq, 1), B), dtype=torch.int32, device=dev)
-    E = torch.empty_like(H)
+    # each row's H and E at a strip's last column, for the next strip
+    edge = torch.empty((Lq, B, 2), dtype=torch.int32, device=dev)
     rc = kernels.lib().mhm2_ssw(
-        qT.data_ptr(), q_len.data_ptr(), rT.data_ptr(), r_len.data_ptr(), B, Lq, Lr,
-        match, mismatch, gap_open, gap_extend, ambiguity, H.data_ptr(), E.data_ptr(),
-        out.data_ptr(), kernels.stream(dev),
+        query.data_ptr(), q_len.data_ptr(), ref.data_ptr(), r_len.data_ptr(), B, Lq, Lr,
+        match, mismatch, gap_open, gap_extend, ambiguity, edge.data_ptr(), out.data_ptr(),
+        kernels.stream(dev),
     )
     kernels.check(rc, "ssw")
     kernels.count_launch("ssw")

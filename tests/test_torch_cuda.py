@@ -20,7 +20,10 @@ from mhm2_proxy_tpu_torch.constants import MAX_KMER_COUNT
 from mhm2_proxy_tpu_torch.ops import (compact, extract, finalize, join, kernels, lookup, scan,
                                       sort, ssw)
 from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
-from torch_common import SCORINGS_ALL
+from torch_common import SCORING_WIDE, SCORINGS_ALL
+
+# the ssw kernel's strip width (csrc/ssw.cu's kStrip), for shapes at its edges
+SSW_STRIP = 32
 
 
 @pytest.fixture
@@ -62,6 +65,30 @@ def test_extract(cuda, k, packed):
         got = _launched("extract", lambda: extract._extract(
             codes.to(cuda), qual.to(cuda), lens.to(cuda), k, packed))
         _same(got, want)
+
+
+@pytest.mark.parametrize("k", [15, 16, 17, 31, 32, 33, 63, 64, 77])
+@pytest.mark.parametrize("dl", [-1, 0, 1])
+@pytest.mark.parametrize("packed", [True, False])
+def test_extract_stream_edges(cuda, k, dl, packed):
+    """Read lengths around 16-base stream words (L = 16m - 1, 16m, 16m + 1:
+    rows that are and are not whole 16-byte loads), lens from k - 2 to L,
+    N and low-quality bases at both ends of every read."""
+    rng = np.random.default_rng(k * 10 + dl + 3 * packed)
+    L = 16 * (k // 16 + 2) + dl
+    B = 41
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    codes[rng.random((B, L)) < 0.05] = 4
+    qual = rng.random((B, L)) > 0.1
+    lens = rng.integers(k - 2, L + 1, B).astype(np.int32)
+    lens[:3] = (L, k + 1, k + 2)
+    for b in range(B):
+        codes[b, [0, lens[b] - 1]] = 4 if b % 2 else codes[b, [0, lens[b] - 1]]
+        qual[b, [0, 1, lens[b] - 2, lens[b] - 1]] = b % 3 == 0
+    args = tuple(map(torch.from_numpy, (codes, qual, lens)))
+    want = extract._extract(*args, k, packed)
+    got = _launched("extract", lambda: extract._extract(*(x.to(cuda) for x in args), k, packed))
+    _same(got, want)
 
 
 def _sorted_run(rng, n, n_lanes, kw, n_keys):
@@ -348,6 +375,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         compact.compact_classes((torch.zeros((8, 2), dtype=torch.int32, device=cuda),), x, 2, (0,))
     with pytest.raises(TypeError, match="compact flags"):
         compact.compact_classes((x,), x.float(), 2, (0,))
+    codes = torch.zeros((2, 3), dtype=torch.uint8, device=cuda)
+    lens = torch.full((2,), 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="ssw kernel launch failed"):  # the best-cell key
+        ssw.sw_align_ends(codes, lens, codes, lens, match=1 << 25)
 
 
 def _compact_case(rng, n, n_lanes):
@@ -492,6 +523,72 @@ def test_ssw_shapes(cuda, B, Lq, Lr):
     """Lq = 1, and Lq = 1100 with Lr = 4200, past the TPU kernel's limits."""
     rng = np.random.default_rng(Lq)
     _ssw_same(cuda, _ssw_pairs(rng, B, Lq, Lr, err=0.02), SCORINGS_ALL[0])
+
+
+@pytest.mark.parametrize("a,c", [(1, -1), (1, 0), (1, 1), (2, 1)])
+def test_ssw_strip_edges(cuda, a, c):
+    """Lr (the strip axis) and Lq at R - 1, R, R + 1 and 2R + 1 for the
+    kernel's strip width R, every scoring and one whose scores do not fit
+    a signed byte (the compare-and-select substitution)."""
+    n = a * SSW_STRIP + c
+    rng = np.random.default_rng(n)
+    for Lq, Lr in ((n, n), (5, n), (n, 3 * SSW_STRIP + 2)):
+        args = _ssw_pairs(rng, 77, Lq, Lr, err=0.1)
+        for scoring in SCORINGS_ALL + [SCORING_WIDE]:
+            _ssw_same(cuda, args, scoring)
+
+
+def test_ssw_ties_across_strips(cuda):
+    """Equal best scores in two strips, the later strip's on the earlier
+    row: the earlier column wins; and inside one strip, the smaller column
+    on the later row beats the larger column on the earlier row."""
+    R = SSW_STRIP
+    pairs = [("CA", "T" * (R - 1) + "ACT"),  # (1, R-1) in strip 0 ties (0, R) in strip 1
+             ("GA", "AGT"),                   # (1, 0) ties (0, 1) inside a strip
+             ("AC", "T" * (2 * R - 1) + "AC")]  # the best in the last, partial strip
+    B = len(pairs)
+    Lr = max(len(b) for _, b in pairs)
+    q = np.full((B, 2), 255, np.uint8)
+    r = np.full((B, Lr), 255, np.uint8)
+    for i, (a, b) in enumerate(pairs):
+        q[i, : len(a)] = ["ACGT".index(x) for x in a]
+        r[i, : len(b)] = ["ACGT".index(x) for x in b]
+    ql = np.array([len(a) for a, _ in pairs], np.int32)
+    rl = np.array([len(b) for _, b in pairs], np.int32)
+    args = tuple(map(torch.from_numpy, (q, ql, r, rl)))
+    for scoring in SCORINGS_ALL:
+        _score, qe, re_ = _ssw_same(cuda, args, scoring)
+        assert qe.tolist()[:2] == [1, 1] and re_.tolist()[:2] == [R - 1, 0]
+        assert (qe[2], re_[2]) == (1, 2 * R)
+
+
+@pytest.mark.parametrize("scoring", SCORINGS_ALL)
+def test_ssw_ends_in_the_last_strip(cuda, scoring):
+    """Each query is cut from the end of its ref window, so the best cell
+    lies in the pair's last strip, which r_len leaves partial at every
+    offset."""
+    R = SSW_STRIP
+    rng = np.random.default_rng(scoring["gap_open"] * 5 + scoring["gap_extend"])
+    B, Lq, Lr = 4 * R, 30, 4 * R + 7
+    ref = rng.integers(0, 4, (B, Lr)).astype(np.uint8)
+    rl = (Lr - np.arange(B) % (2 * R)).astype(np.int32)
+    ql = np.full(B, Lq, np.int32)
+    q = np.stack([ref[b, rl[b] - Lq : rl[b]] for b in range(B)])
+    args = tuple(map(torch.from_numpy, (q, ql, ref, rl)))
+    _score, qe, re_ = _ssw_same(cuda, args, scoring)
+    assert np.array_equal(re_.numpy(), rl - 1) and (qe.numpy() == Lq - 1).all()
+
+
+@pytest.mark.parametrize("scores", [(127, 128, 128), (128, 1, 1), (1, 129, 1), (1, 1, 129),
+                                    (1, -128, 1)])
+def test_ssw_substitution_forms(cuda, scores):
+    """Scorings on each side of the kernel's choice of substitution form: a
+    byte permute when match, -mismatch and -ambiguity fit a signed byte (the
+    first), else compares."""
+    match, mismatch, ambiguity = scores
+    rng = np.random.default_rng(sum(map(abs, scores)))
+    _ssw_same(cuda, _ssw_pairs(rng, 130, 40, 70, err=0.1),
+              dict(match=match, mismatch=mismatch, gap_open=3, gap_extend=1, ambiguity=ambiguity))
 
 
 def test_sw_align_and_cigars(cuda):

@@ -52,9 +52,12 @@ def test_packed_equals_records_plus_pack(k):
         assert np.array_equal(prec[key].numpy()[v], np.asarray(rec[key])[v]), key
 
 
-@pytest.mark.parametrize("k", [21, 33])
-def test_equals_pallas_interpret(k):
-    codes, qual_ok, lens = _block(7 + k, 5, 64, k)
+@pytest.mark.parametrize("k,L", [(21, 64), (33, 64), (16, 47), (17, 48), (31, 49), (32, 63),
+                                 (63, 80), (77, 95), (77, 97)])
+def test_equals_pallas_interpret(k, L):
+    """k at and around 16-base word multiples, L around them (the CUDA
+    kernel packs 16-base stream words)."""
+    codes, qual_ok, lens = _block(7 + k + L, 5, L, k)
     args = (jnp.asarray(codes), jnp.asarray(qual_ok), jnp.asarray(lens))
     want = extract_packed_lanes(*args, k, interpret=True)
     got = PE.extract_packed_lanes(_t(codes), _t(qual_ok), _t(lens), k)

@@ -13,7 +13,11 @@ from mhm2_proxy_tpu.ops.pallas_ssw import pallas_sw_align_ends
 from mhm2_proxy_tpu_torch.ops import ssw as P
 from mhm2_proxy_tpu_torch.ops.bitkmer import ascii_to_codes
 from tests.test_ssw import CASES, SCORINGS
-from torch_common import SCORINGS_ALL, one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_common import SCORING_WIDE, SCORINGS_ALL, one_torch_thread  # noqa: F401 (autouse)
+
+# the CUDA kernel's strip width (csrc/ssw.cu's kStrip): the shapes below sit at
+# its strip edges
+STRIP = 32
 
 
 def test_scorings_all_extends_the_reference_profiles():
@@ -83,11 +87,12 @@ def test_ssw_cigars(scoring):
         assert (cigars[i], mms[i]) == (cigar, mm), (i, qs, rs, cigars[i])
 
 
-@pytest.mark.parametrize("scoring", SCORINGS_ALL)
+@pytest.mark.parametrize("scoring", SCORINGS_ALL + [SCORING_WIDE])
 def test_sw_align_ends_equals_reference(scoring):
     """The plain version == the reference's XLA loop == its Pallas kernel in
     interpret mode, at (16, 24, 40) with ragged lengths (0 included),
-    ambiguous codes and pad bytes."""
+    ambiguous codes and pad bytes; the reference's profiles, go < ge, and a
+    mismatch score past a signed byte."""
     rng = np.random.default_rng(7)
     B, Lq, Lr = 16, 24, 40
     ref = rng.integers(0, 5, (B, Lr)).astype(np.uint8)
@@ -106,6 +111,29 @@ def test_sw_align_ends_equals_reference(scoring):
     for g, w, p, name in zip(got, want, pallas, ("score", "q_end", "r_end")):
         assert np.array_equal(g.numpy(), np.asarray(w)), name
         assert np.array_equal(g.numpy(), np.asarray(p)), name
+
+
+@pytest.mark.parametrize("n", [STRIP - 1, STRIP, STRIP + 1, 2 * STRIP + 1])
+def test_sw_align_ends_strip_edges_equal_reference(n):
+    """Lq and Lr at the CUDA kernel's strip edges (R - 1, R, R + 1, 2R + 1
+    for its strip width R), with ties across strips: the plain version ==
+    the reference's XLA loop == its Pallas kernel in interpret mode."""
+    S = STRIP
+    rng = np.random.default_rng(n)
+    pairs = [("CA", "T" * (S - 1) + "ACT"), ("GA", "AGT"), ("AC", "T" * (2 * S - 1) + "AC")]
+    pairs = [(a[:n], b[:n]) for a, b in pairs]
+    pairs += _mutated_pairs(rng, 13, max(n // 2, 6), n + 1, 3)
+    pairs = [(a[:n], b[:n]) for a, b in pairs]
+    q, ql, r, rl = _batch(pairs + [("A" * n, "A" * n)])
+    rl[5] = max(rl[5] - 3, 0)
+    for scoring in SCORINGS_ALL:
+        got = P.sw_align_ends(*map(torch.from_numpy, (q, ql, r, rl)), **scoring)
+        jargs = tuple(map(jnp.asarray, (q, ql, r, rl)))
+        want = R._sw_align_ends_xla(*jargs, **scoring)
+        pallas = pallas_sw_align_ends(*jargs, **scoring, interpret=True)
+        for g, w, p, name in zip(got, want, pallas, ("score", "q_end", "r_end")):
+            assert np.array_equal(g.numpy(), np.asarray(w)), name
+            assert np.array_equal(g.numpy(), np.asarray(p)), name
 
 
 @pytest.mark.parametrize("scoring", SCORINGS_ALL)

@@ -13,6 +13,10 @@ SCORINGS_ALL = [
     dict(match=2, mismatch=4, gap_open=4, gap_extend=2, ambiguity=1),
     dict(match=2, mismatch=3, gap_open=1, gap_extend=3, ambiguity=1),
 ]
+# a mismatch score past a signed byte: the CUDA kernel's compare-and-select
+# substitution (it permutes score bytes when match, -mismatch and -ambiguity
+# all fit one)
+SCORING_WIDE = dict(match=2, mismatch=200, gap_open=3, gap_extend=1, ambiguity=2)
 
 
 @pytest.fixture(autouse=True, scope="module")
