@@ -4,7 +4,8 @@
     python3 chip_smoke.py                          # every phase, one GPU
     python3 chip_smoke.py --only callers [DIR]     # phase 2's whole-call rows
     python3 chip_smoke.py --only ladder [DIR]      # phase 5, kernels metered
-    python3 chip_smoke.py --only kernels [DIR]     # phase 2's extract and ssw rows
+    python3 chip_smoke.py --only kernels [DIR]     # phase 2's extract, finalize, join,
+                                                   # scan (+ collapse compact) and ssw rows
 
 (DIR: the checkout whose mhm2_proxy_tpu_torch to run, default this one, so
 that another tree, e.g. a parent commit unpacked beside it, is timed on the
@@ -24,7 +25,9 @@ Phases (any failure raises, and the script exits non-zero):
      scoring profiles, one past a signed byte, and at 2 x 150 bp reads
      (Lq 150, Lr 214); the minimizer kernel on 131,072-read blocks at
      k = 21, 33, 77, 99 with 4 shards, a (2048, 2048) contig-window block
-     and 4096 shards;
+     and 4096 shards; the join kernel at the k = 21 edge join's shapes
+     (fused lanes, separate lanes, and the ladder's all-ones mix) and at
+     the k = 77 and 99 joins' (6 and 8 key lanes, 75,497,472 merged rows);
      table_lookup on CUDA against the CPU at a 30M-row index; the count
      store + traversal on CUDA against the same on the CPU at
      k = 21, 33, 55, 63, 77, 99 (every instantiation of the kernels' templates),
@@ -55,9 +58,11 @@ Phases (any failure raises, and the script exits non-zero):
      counting log (blocks, raw rows, split-LSM collapses, cascade merges and
      deferrals, ranged pieces, table rows, peak device memory), all six
      contigging launch counts > 0, each kernel's device ms over the ladder
-     (a CUDA event pair around every call of its C entry), at least one
-     collapse, one ranged read fold and one ranged ctg-rule fold, and >= 95%
-     exact-substring bases;
+     (a CUDA event pair around every call of its C entry; each join call
+     with its shape), at least one collapse, one ranged read fold and one
+     ranged ctg-rule fold, >= 95% exact-substring bases, and the k = 21
+     edge join's shape (trimmed table rows, valid and UU rows, all-ones
+     table rows and queries, the longest equal-key run);
   6. store-level equality on that community's reads plus contig windows cut
      from its genomes, at k = 33 (k = 77's separate payload runs the forced
      split LSM in phase 2):
@@ -506,8 +511,7 @@ def phase_extract(record, gen):
 def phase_kernels(results):
     import torch
 
-    from mhm2_proxy_tpu_torch.ops import compact, count, extract, finalize, join, lookup, sort
-    from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes, narrow
+    from mhm2_proxy_tpu_torch.ops import compact, sort
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20260817)
@@ -541,6 +545,50 @@ def phase_kernels(results):
                (na + nb) * (2 * kw + 2), library_ms)
         del a, b, out
 
+    genome = phase_finalize(record, gen)
+    # compact: 2-class at 36,700,160 rows, 3 lanes, emit class 0 (a fifth of
+    # the rows), rows past the count unwritten, as the library call; int32
+    # class flags, then the same rows as a bool keep mask
+    N = 36_700_160
+    lanes = tuple(torch.randint(-2**31, 2**31, (N,), dtype=torch.int32, device=dev, generator=gen)
+                  for _ in range(3))
+    flags = (torch.rand((N,), device=dev, generator=gen) > 0.2).to(torch.int32)
+    layout = (((0,), (1,), (2,)),)
+    stacked, keep = torch.stack(lanes, 1), flags == 0
+    # one class emitted: boolean-mask indexing of the stacked lanes
+    library_ms = cuda_ms(lambda: stacked[keep])
+    del stacked
+    for what, fl in ((f"{N} rows 2-class", flags), (f"{N} rows bool keep mask", keep)):
+        kern = lambda: compact._compact_cuda(lanes, fl, 2, (0,), layout, None)  # noqa: E731
+        plain = lambda: compact._compact_plain(lanes, fl, (0,), layout, None)  # noqa: E731
+        ((ko,), kn), ((po,), pn) = kern(), plain()
+        n = int(pn[0])
+        err = abs(int(kn[0]) - n) + max_abs_err(tuple(x[:n] for x in ko), tuple(x[:n] for x in po))
+        # bytes: the flags, and the emitted rows' lanes read and written (the
+        # kernel gathers only those rows)
+        record("compact", err, cuda_ms(kern), cuda_ms(plain), what,
+               nbytes(fl) + 2 * 12 * n, N * OPS_PER_ROW["compact"], library_ms)
+    del lanes, flags, keep
+
+    phase_join(record, gen)
+    phase_collapse_kernels(record, genome, gen)
+    phase_ssw(record, gen)
+    phase_minimizer(record, gen)
+    phase_lookup(gen)
+    torch.cuda.empty_cache()
+
+
+def phase_finalize(record, gen):
+    """The finalize kernel against its plain version: merged runs of two
+    extracted read blocks (131072 x 100 bp reads of a 2.25 Mbp genome),
+    packed at k = 21 and with a separate payload at k = 77, purge on and
+    off. Returns the genome (the collapse rows read from it too)."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import count, extract, finalize, sort
+    from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
+
+    dev = "cuda"
     # finalize: purge True and False over a merged run of two extracted read
     # blocks (131072 x 100 bp reads of a 2.25 Mbp genome)
     genome = torch.randint(0, 4, (2_250_000,), dtype=torch.uint8, device=dev, generator=gen)
@@ -578,31 +626,19 @@ def phase_kernels(results):
                f"{N} rows k=77 separate payload purge={purge}", nbytes(keys, pay, kd, kf),
                N * OPS_PER_ROW["finalize"])
     del runs, merged, keys, pay
+    return genome
 
-    # compact: 2-class at 36,700,160 rows, 3 lanes, emit class 0 (a fifth of
-    # the rows), rows past the count unwritten, as the library call; int32
-    # class flags, then the same rows as a bool keep mask
-    N = 36_700_160
-    lanes = tuple(torch.randint(-2**31, 2**31, (N,), dtype=torch.int32, device=dev, generator=gen)
-                  for _ in range(3))
-    flags = (torch.rand((N,), device=dev, generator=gen) > 0.2).to(torch.int32)
-    layout = (((0,), (1,), (2,)),)
-    stacked, keep = torch.stack(lanes, 1), flags == 0
-    # one class emitted: boolean-mask indexing of the stacked lanes
-    library_ms = cuda_ms(lambda: stacked[keep])
-    del stacked
-    for what, fl in ((f"{N} rows 2-class", flags), (f"{N} rows bool keep mask", keep)):
-        kern = lambda: compact._compact_cuda(lanes, fl, 2, (0,), layout, None)  # noqa: E731
-        plain = lambda: compact._compact_plain(lanes, fl, (0,), layout, None)  # noqa: E731
-        ((ko,), kn), ((po,), pn) = kern(), plain()
-        n = int(pn[0])
-        err = abs(int(kn[0]) - n) + max_abs_err(tuple(x[:n] for x in ko), tuple(x[:n] for x in po))
-        # bytes: the flags, and the emitted rows' lanes read and written (the
-        # kernel gathers only those rows)
-        record("compact", err, cuda_ms(kern), cuda_ms(plain), what,
-               nbytes(fl) + 2 * 12 * n, N * OPS_PER_ROW["compact"], library_ms)
-    del lanes, flags, keep
 
+
+def phase_join(record, gen):
+    """The join kernel against its plain version at the k = 21 edge join's
+    shapes: fused lanes (below 2^25 rows), then phase_join_separate's rows."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import join, lookup
+    from mhm2_proxy_tpu_torch.ops.u32 import narrow
+
+    dev = "cuda"
     # join: the k=21 edge join at the real-size community's shape: a table
     # of 7,340,032 rows (6,636,069 valid), two queries per row (70% hits,
     # 10% all-ones), a 6-bit payload
@@ -635,11 +671,6 @@ def phase_kernels(results):
            f"{M} merged rows ({T} table, {Q} queries) kw=2", nbytes(merged, ka), M * 8)
     del merged, ka, pa, words, qw, keys
     phase_join_separate(record, gen)
-    phase_collapse_kernels(record, genome, gen)
-    phase_ssw(record, gen)
-    phase_minimizer(record, gen)
-    phase_lookup(gen)
-    torch.cuda.empty_cache()
 
 
 # The least int32 operations the minimizer needs a position, at any k (u64
@@ -780,6 +811,75 @@ def phase_join_separate(record, gen):
     check(n_hit <= hits < Q and ok, f"separate-lane join: {hits} answers for {n_hit} hits")
     log(f"[join-sep] table_join_payload, {T} table rows, {Q} queries: {hits} found, "
         f"{cuda_ms(run):.3f} ms (query lexsort + sort kernel merge + join kernel)")
+    del words, qw, payload, idx, found, pay
+    phase_join_ladder_mix(record, gen)
+
+
+# The k = 21 edge join of phase 5's ladder (its `[arctic] k=21 edge join`
+# line on an H100: 33,554,432 trimmed table rows, 7,014,948 of them
+# all-ones; 67,108,864 queries, 14,049,878 of them all-ones, those of non-UU
+# rows; the longest equal-key run 21,064,826 rows): the all-ones shares
+LADDER_JOIN_ONES_TABLE = 7_014_948 / 33_554_432
+LADDER_JOIN_ONES_QUERIES = 14_049_878 / 67_108_864
+
+
+# The ladder's k = 77 and 99 edge joins (phase 5's `mhm2_join_sep` lines):
+# 6 and 8 key lanes, 75,497,472 merged rows, 50,331,648 queries
+LADDER_WIDE_JOINS = ((6, 25_165_824), (8, 25_165_824))
+
+
+def phase_join_ladder_mix(record, gen):
+    """The separate-lane join with the ladder's all-ones shares
+    (LADDER_JOIN_ONES_*): at the k = 21 edge join's 2^25 table rows and 2
+    key lanes, then at the k = 77 and 99 joins' shapes (LADDER_WIDE_JOINS).
+    The all-ones table rows and queries make one run of millions of rows,
+    as build_edges' does; of the other queries 70% hit."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import join, lookup
+    from mhm2_proxy_tpu_torch.ops.u32 import narrow
+
+    dev = "cuda"
+    for kw, T in ((2, 1 << 25),) + LADDER_WIDE_JOINS:
+        Q = 2 * T
+        n_valid = T - int(T * LADDER_JOIN_ONES_TABLE)
+        n_ones = int(Q * LADDER_JOIN_ONES_QUERIES)
+        keys = torch.unique(torch.randint(0, 1 << 42, (T + T // 8,), device=dev,
+                                          generator=gen))[:T]
+        check(keys.shape[0] == T, "join: too few distinct table keys")
+
+        def key_words(kk):
+            # the 42-bit key in lanes 0-1 (distinct keys differ there, as
+            # sorted neighbours of a real table mostly do), lanes 2.. a hash
+            return torch.stack([narrow(kk >> 10), narrow((kk & 0x3FF) << 22)] + [
+                narrow((kk * (2654435761 + 2 * w)) & 0xFFFFFFFF) for w in range(2, kw)], 1)
+
+        words = key_words(keys)
+        words[n_valid:] = -1
+        n_hit = (Q - n_ones) * 7 // 10
+        qk = torch.cat([keys[torch.randint(0, n_valid, (n_hit,), device=dev, generator=gen)],
+                        torch.randint(0, 1 << 42, (Q - n_ones - n_hit,), device=dev,
+                                      generator=gen)])
+        qw = torch.cat([key_words(qk), torch.full((n_ones, kw), -1, dtype=torch.int32,
+                                                  device=dev)])
+        qw = qw[torch.randperm(Q, device=dev, generator=gen)]
+        del keys, qk
+        payload = torch.randint(0, 64, (T,), device=dev, generator=gen)
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        merged = lookup.merged_join_rows_sep(words, qw, payload)
+        del words, qw
+        kern = lambda: join._propagate_sep_cuda(merged, nv, kw, Q, 32)  # noqa: E731
+        plain = lambda: join._propagate_sep_plain(merged, nv, kw, Q, 32)  # noqa: E731
+        ka, pa = kern(), plain()
+        err = max_abs_err((narrow(ka), narrow(ka >> 32)), (narrow(pa), narrow(pa >> 32)))
+        hits = int((pa != 0).sum())
+        check(n_hit <= hits < Q - n_ones, f"ladder-mix join: {hits} answers for {n_hit} hits")
+        M = merged[0].shape[0]
+        record("join", err, cuda_ms(kern), cuda_ms(plain),
+               f"{M} merged rows ({T} table, {Q} queries) kw={kw} separate lanes, ladder mix: "
+               f"{T - n_valid + n_ones} all-ones rows", nbytes(merged, ka), M * 8)
+        del merged, ka, pa, payload
+        torch.cuda.empty_cache()
 
 
 def phase_collapse_kernels(record, genome, gen):
@@ -1010,15 +1110,16 @@ class launch_meter:
     launches, and, when the stream had run dry, the host's time to launch
     them (microseconds), but none of the wrapper's own host work
     (allocations, checks). totals() synchronizes and gives, per kernel,
-    (entry calls, device ms)."""
+    (entry calls, device ms); join_calls() each join call's (entry, key
+    lanes, merged rows, queries, device ms)."""
 
     def __enter__(self):
         import torch
 
         from mhm2_proxy_tpu_torch.ops import kernels
 
-        lib, events = kernels.lib(), {}
-        self.kernels, self.orig, self.events = kernels, kernels.lib, events
+        lib, events, joins = kernels.lib(), {}, []
+        self.kernels, self.orig, self.events, self.joins = kernels, kernels.lib, events, joins
 
         class MeteredLib:
             def __getattr__(self, entry):
@@ -1033,6 +1134,9 @@ class launch_meter:
                     rc = fn(*args)
                     ev[1].record()
                     events.setdefault(C_ENTRIES[entry], []).append(ev)
+                    if entry in ("mhm2_join", "mhm2_join_sep"):  # (keys, kw, src, [pay,] M, ..., Q
+                        joins.append((entry, args[1], args[3 if entry == "mhm2_join" else 4],
+                                      args[8], ev))
                     return rc
 
                 return call
@@ -1043,6 +1147,13 @@ class launch_meter:
 
     def __exit__(self, *exc):
         self.kernels.lib = self.orig
+
+    def join_calls(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [(entry, kw, M, Q, e0.elapsed_time(e1))
+                for entry, kw, M, Q, (e0, e1) in self.joins]
 
     def totals(self):
         import torch
@@ -1342,6 +1453,8 @@ def phase_arctic(work):
     for name, (calls, ms) in ladder.items():
         log(f"[arctic] kernel {name}: {counts[name]} launches, {calls} C entry calls, "
             f"{ms:.2f} device ms over the ladder (CUDA event pairs around the C entry)")
+    for entry, kw, M, Q, ms in meter.join_calls():
+        log(f"[arctic] {entry}: {kw} key lanes, {M} merged rows, {Q} queries, {ms:.3f} device ms")
     check(sorted(rounds) == [21, 33, 55, 77, 99], f"rounds run: {sorted(rounds)}")
     check(all(counts[k] > 0 for k in counts if k not in ("ssw", "minimizer")),
           f"a kernel of the path never launched: {counts}")
@@ -1356,7 +1469,44 @@ def phase_arctic(work):
     log(f"[arctic] {asm_metrics(seqs)}; exact-substring bases {match}/{tot} = {frac:.4f}; "
         f"k=21 table {k21_dig[0]} rows, digest {k21_dig[1][:16]}")
     check(tot > 0 and frac >= 0.95, frac)
+    log("[arctic] k=21 edge join: " + ", ".join(
+        f"{key} {val}" for key, val in edge_join_shape(k21.tables[0], 21).items()))
     return fq, gens, counts, out, k21_dig, {name: ms for name, (_c, ms) in ladder.items()}
+
+
+def edge_join_shape(table, k: int) -> dict:
+    """The shape of build_edges' join on a host copy of a final table
+    (words, count, left, right, n), computed on the card as
+    dbjg/traverse.py does it: the table trimmed to trim_rows(n) rows, two
+    queries a row, all-ones where the row is not UU. Returns the trimmed
+    table rows, valid rows, UU rows, all-ones table rows and queries, and
+    the longest equal-key run of table rows and queries together."""
+    import numpy as np
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import bitkmer as bk
+    from mhm2_proxy_tpu_torch.ops.count import trim_rows
+    from mhm2_proxy_tpu_torch.ops.u32 import ONES
+
+    words, _count, left, right, n = table
+    T = max(256, trim_rows(n))
+    m = min(T, words.shape[0])
+    w = torch.full((T, words.shape[1]), ONES, dtype=torch.int32, device="cuda")
+    w[:m] = torch.from_numpy(np.ascontiguousarray(words[:m]).view(np.int32)).cuda()
+    lt = torch.full((T,), 5, dtype=torch.uint8, device="cuda")
+    rt = lt.clone()
+    lt[:m] = torch.from_numpy(left[:m]).cuda()
+    rt[:m] = torch.from_numpy(right[:m]).cuda()
+    uu = (torch.arange(T, device="cuda") < n) & (lt < 4) & (rt < 4)
+    b_can, _ = bk.canonicalize_words(bk.forward_base_words(w, rt, k), k)
+    p_can, _ = bk.canonicalize_words(bk.backward_base_words(w, lt, k), k)
+    q = torch.where(torch.cat([uu, uu])[:, None], torch.cat([b_can, p_can]), ONES)
+    del b_can, p_can
+    runs = torch.unique(torch.cat([w, q]), dim=0, return_counts=True)[1]
+    return {"table rows": T, "valid": n, "UU": int(uu.sum()),
+            "all-ones table rows": int((w == ONES).all(1).sum()), "queries": 2 * T,
+            "all-ones queries": int((q == ONES).all(1).sum()),
+            "longest equal-key run": int(runs.max())}
 
 
 class k21_table_copy:
@@ -1619,9 +1769,9 @@ def main(argv):
         print("chip_smoke: torch.cuda.is_available() is False: no CUDA device", file=sys.stderr)
         return 2
     # `--only callers|ladder|kernels [DIR]`: only phase_callers, only phase 5
-    # (the 27 Mbp ladder, its kernels metered), or only phase 2's extract and
-    # ssw rows, on the package of DIR (default this checkout), e.g. a parent
-    # tree unpacked beside it
+    # (the 27 Mbp ladder, its kernels metered), or only phase 2's extract,
+    # finalize, join, collapse (scan, compact) and ssw rows, on the package
+    # of DIR (default this checkout), e.g. a parent tree unpacked beside it
     only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
     if argv and only not in ("callers", "ladder", "kernels"):
         print("usage: chip_smoke.py [--only callers|ladder|kernels [PACKAGE_DIR]]",
@@ -1648,6 +1798,9 @@ def main(argv):
             gen.manual_seed(20260817)
             record = make_recorder({})
             phase_extract(record, gen)
+            genome = phase_finalize(record, gen)
+            phase_join(record, gen)
+            phase_collapse_kernels(record, genome, gen)
             phase_ssw(record, gen)
             return 0
         work = os.path.join(ROOT, "chip_smoke_work")

@@ -34,6 +34,7 @@
 // partition does, so no tile waits for the total. The last tile writes the
 // class totals to a device tensor.
 #include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -70,22 +71,11 @@ struct CompactDesc {
   unsigned long long gen;          // this call's generation, in [1, 2^31)
 };
 
-// status word: generation << 33 | flag << 31 | value (value < 2^31)
-constexpr unsigned long long kAggregate = 1, kPrefix = 2;
-
+// status word (lookback.cuh): generation << 33 | state << 31 | value
+// (value < 2^31)
 __device__ __forceinline__ unsigned long long pack_status(unsigned long long gen,
-                                                          unsigned long long flag, int64_t v) {
-  return (gen << 33) | (flag << 31) | (unsigned long long)v;
-}
-
-__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+                                                          unsigned long long state, int64_t v) {
+  return (gen << 33) | (state << 31) | (unsigned long long)v;
 }
 
 // the class code (0-3, or kNoClass) of each of a thread's 16 rows, 4 bits each
@@ -140,14 +130,7 @@ __device__ int64_t look_back(const CompactDesc& d, int64_t t, int c) {
   for (int64_t p = t - 1;; p -= 32) {
     const int64_t idx = p - lane;
     unsigned long long s = 0;
-    if (idx >= 0) {
-      const unsigned long long* w = d.status + idx * d.n_classes + c;
-      for (;;) {
-        s = ld_relaxed(w);
-        if ((s >> 33) == d.gen && ((s >> 31) & 3ull) != 0) break;
-        __nanosleep(20);
-      }
-    }
+    if (idx >= 0) s = wait_status<false>(d.status + idx * d.n_classes + c, d.gen, 33, 31);
     const bool is_prefix = idx < 0 || ((s >> 31) & 3ull) == kPrefix;
     const unsigned pm = __ballot_sync(0xffffffffu, is_prefix);
     const int stop = pm ? __ffs(pm) - 1 : 31;
@@ -165,13 +148,7 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(const __grid_constant
   __shared__ int64_t s_excl[kMaxClasses];
   __shared__ int64_t s_tile;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) {
-    const int t = atomicAdd(d.ticket, 1);
-    if (t == d.T - 1) atomicExch(d.ticket, 0);  // every ticket is out: reset for the next call
-    s_tile = t;
-  }
-  __syncthreads();
-  const int64_t t = s_tile;
+  const int64_t t = take_tile(d.ticket, d.T, &s_tile);
   const int64_t base = t * kTile;
   const int rows = (int)(d.N - base < kTile ? d.N - base : kTile);
 

@@ -1,7 +1,8 @@
-// Segmented group sums over lexsorted rows, shared by finalize.cu and scan.cu.
+// Segmented group sums over lexsorted rows: finalize.cu's three-launch scan
+// (scan.cu runs its own single pass with a decoupled look-back).
 //
 // A row carries nine non-negative int32 values (count, four left one-hots,
-// four right one-hots, or up to nine caller lanes) and a group-start flag.
+// four right one-hots) and a group-start flag.
 // The segmented operator (f1, x1) . (f2, x2) = (f1 | f2, f2 ? x2 : x1 + x2)
 // gives each row its group's inclusive sums. The adds saturate at INT32_MAX,
 // so with non-negative values a later clamp at any c <= INT32_MAX equals the

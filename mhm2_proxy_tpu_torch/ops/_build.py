@@ -39,7 +39,8 @@ I32 = ctypes.c_int
 I64 = ctypes.c_int64
 U32 = ctypes.c_uint32
 
-# C entry points -> argtypes (each returns a cudaError_t as int)
+# C entry points -> argtypes (each returns a cudaError_t as int, but for
+# those in _RESTYPES)
 _SIGNATURES = {
     "mhm2_extract": [P, P, P, I64, I32, I32, I32, P, I32, P],
     "mhm2_merge": [P, P, I64, P, P, I64, P, P, I32, I32, P, I64, P],
@@ -47,13 +48,17 @@ _SIGNATURES = {
     "mhm2_finalize": [P, I32, I32, I64, U32, I32, I32, P, P, P, P, P, P],
     "mhm2_compact": [P, P, I32, P, I32, I64, I32, I32, P, P, P, P, P, P, P, I32, P, P, I64, P,
                      I64, P],
-    "mhm2_join": [P, I32, P, I64, P, I32, I32, P, I64, P],
-    "mhm2_join_sep": [P, I32, P, P, I64, P, I32, P, I64, P],
-    "mhm2_scan_lanes": [P, I32, P, I64, I32, P, P, P, P, P],
-    "mhm2_scan_packed": [P, I32, I64, U32, I32, P, P, P, P, P],
+    "mhm2_join": [P, I32, P, I64, P, I32, I32, P, I64, P, I64, P],
+    "mhm2_join_sep": [P, I32, P, P, I64, P, I32, P, I64, P, I64, P],
+    "mhm2_join_scratch_bytes": [I64, I32],
+    "mhm2_scan_lanes": [P, I32, P, I64, I32, P, P, I64, P, P, I64, P],
+    "mhm2_scan_packed": [P, I32, I64, U32, I32, P, P, I64, P, P, I64, P],
     "mhm2_ssw": [P, P, P, P, I64, I32, I32, I32, I32, I32, I32, I32, P, P, P],
     "mhm2_minimizer": [P, I64, I32, I32, I32, U32, P, P],
 }
+
+
+_RESTYPES = {"mhm2_join_scratch_bytes": ctypes.c_int64}
 
 
 def _nvcc() -> str:
@@ -121,7 +126,7 @@ def load():
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     library_path = so
     _lib = lib
     return lib

@@ -109,24 +109,6 @@ def _compact_plain(lanes, flags, emit, layouts, fills):
     return outs, torch.tensor(counts, dtype=torch.int32, device=dev)
 
 
-# per device: [status words, ticket, the last call's generation]
-_scratch: dict = {}
-_GEN_LIMIT = (1 << 31) - 1
-
-
-def _look_back_scratch(dev, words: int):
-    """The look-back status words (zeroed once, then made stale by each
-    call's generation) and the tile ticket, for a call on `dev`."""
-    s = _scratch.get(dev)
-    if s is None or s[0].numel() < words or s[2] + 1 >= _GEN_LIMIT:
-        cap = max(words, 2 * s[0].numel() if s is not None else 1 << 16)
-        s = [torch.zeros((cap,), dtype=torch.int64, device=dev),
-             torch.zeros((1,), dtype=torch.int32, device=dev), 0]
-        _scratch[dev] = s
-    s[2] += 1
-    return s
-
-
 def _compact_cuda(lanes, flags, n_classes, emit, layouts, fills):
     for i, x in enumerate(lanes):
         kernels.require_lane(x, f"compact lane {i}")
@@ -166,7 +148,7 @@ def _compact_cuda(lanes, flags, n_classes, emit, layouts, fills):
                 lane += 1
         n_out[e] = lane
     T = -(-N // TILE)
-    status, ticket, gen = _look_back_scratch(dev, T * n_classes)
+    status, ticket, gen = kernels.look_back_scratch("compact", dev, T * n_classes)
     counts = torch.empty((n_emit,), dtype=torch.int32, device=dev)
     rc = kernels.lib().mhm2_compact(
         kernels.ptrs(lanes), kernels.strides(lanes), len(lanes), flags.data_ptr(),

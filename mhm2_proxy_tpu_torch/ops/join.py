@@ -9,8 +9,12 @@ returns, at each query index, the largest answer in the query's equal-key
 run within the span of the reference's doubling shifts (0 if none): the
 reference's propagate_compact plus its ragged_append and destination sort
 (mhm2_proxy_tpu/ops/lookup.py:117-137). The CUDA kernel is csrc/join.cu
-(each query row walks its own run and stores its answer at its index); the
-plain version is the reference's doubling loop and one scatter.
+(tiles of merged rows with reach-row halos in shared memory, a van
+Herk/Gil-Werman window maximum there; past 4 MB of answers they are staged
+by window of query indices and written out in order; reach <= 255, so
+max_dup <= 256; query ids distinct, and where repeated ids overflow the
+staging the wrapper raises); the plain version is the reference's doubling
+loop and one scatter.
 
 propagate_answers_sep is the same over the separate-lane layout that tables
 or query sets of 2^25 rows and more need (the reference's XLA branch,
@@ -38,6 +42,17 @@ def reach(max_dup: int) -> int:
     while s < max_dup:
         s *= 2
     return s - 1
+
+
+MAX_KERNEL_REACH = 255  # csrc/join.cu's halo
+
+
+def _kernel_reach(max_dup: int) -> int:
+    r = reach(max_dup)
+    if r > MAX_KERNEL_REACH:
+        raise ValueError(f"join kernel: max_dup {max_dup} spans {r} rows, past its "
+                         f"{MAX_KERNEL_REACH}-row halo")
+    return r
 
 
 def propagate_answers(merged_lanes, n_valid, kw: int, payload_bits: int, n_queries: int,
@@ -107,6 +122,27 @@ def _propagate_sep_plain(lanes, n_valid, kw, n_queries, max_dup):
     return ans
 
 
+def _check_staging(scratch) -> None:
+    """Raise where the staged answers overflowed: the kernel sets the
+    scratch's last int32 when repeated query ids fill a staging bucket or
+    image past its ids (answers were dropped)."""
+    if scratch.numel() and int(scratch[-4:].view(torch.int32)):
+        raise ValueError("join kernel: query ids repeat (a staging bucket overflowed); "
+                         "the query ids must be distinct")
+
+
+def _answers(lib, n_queries: int, dtype, dev):
+    """The answers and the kernel's staging buffer. Where the answers fit
+    one 4 MB bucket the kernel stores the nonzero ones directly (the rest
+    stay zero, so the answers are zero-filled here); past it the kernel
+    stages (dest, answer) pairs and writes every answer itself."""
+    n = lib.mhm2_join_scratch_bytes(n_queries, torch.empty((), dtype=dtype).element_size())
+    if n < 0:
+        raise ValueError(f"join kernel: {n_queries} queries are past its 512 staging buckets")
+    ans = (torch.zeros if n == 0 else torch.empty)((n_queries,), dtype=dtype, device=dev)
+    return ans, torch.empty((n,), dtype=torch.uint8, device=dev)
+
+
 def _propagate_cuda(lanes, n_valid, kw, payload_bits, n_queries, max_dup):
     for i, x in enumerate(lanes):
         kernels.require(x, torch.int32, f"join lane {i}")
@@ -115,15 +151,18 @@ def _propagate_cuda(lanes, n_valid, kw, payload_bits, n_queries, max_dup):
     M = lanes[0].shape[0]
     dev = lanes[0].device
     nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev).reshape(1)
-    ans = torch.zeros((n_queries,), dtype=torch.int32, device=dev)
     if M == 0:
-        return ans
-    rc = kernels.lib().mhm2_join(
+        return torch.zeros((n_queries,), dtype=torch.int32, device=dev)
+    lib = kernels.lib()
+    ans, scratch = _answers(lib, n_queries, torch.int32, dev)
+    rc = lib.mhm2_join(
         kernels.ptrs(lanes[:kw]), kw, lanes[kw].data_ptr(), M, nv.data_ptr(), payload_bits,
-        reach(max_dup), ans.data_ptr(), n_queries, kernels.stream(dev),
+        _kernel_reach(max_dup), ans.data_ptr(), n_queries, scratch.data_ptr(), scratch.numel(),
+        kernels.stream(dev),
     )
     kernels.check(rc, "join")
     kernels.count_launch("join")
+    _check_staging(scratch)
     return ans
 
 
@@ -135,13 +174,16 @@ def _propagate_sep_cuda(lanes, n_valid, kw, n_queries, max_dup):
     M = lanes[0].shape[0]
     dev = lanes[0].device
     nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev).reshape(1)
-    ans = torch.zeros((n_queries,), dtype=torch.int64, device=dev)
     if M == 0:
-        return ans
-    rc = kernels.lib().mhm2_join_sep(
+        return torch.zeros((n_queries,), dtype=torch.int64, device=dev)
+    lib = kernels.lib()
+    ans, scratch = _answers(lib, n_queries, torch.int64, dev)
+    rc = lib.mhm2_join_sep(
         kernels.ptrs(lanes[:kw]), kw, lanes[kw].data_ptr(), lanes[kw + 1].data_ptr(), M,
-        nv.data_ptr(), reach(max_dup), ans.data_ptr(), n_queries, kernels.stream(dev),
+        nv.data_ptr(), _kernel_reach(max_dup), ans.data_ptr(), n_queries, scratch.data_ptr(),
+        scratch.numel(), kernels.stream(dev),
     )
     kernels.check(rc, "join")
     kernels.count_launch("join")
+    _check_staging(scratch)
     return ans

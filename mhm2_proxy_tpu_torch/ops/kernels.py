@@ -51,6 +51,26 @@ def reset_launches() -> None:
         _launches[name] = 0
 
 
+# (kernel, device) -> [status words, ticket, the last call's generation]
+_look_back: dict = {}
+_GEN_LIMIT = (1 << 31) - 1
+
+
+def look_back_scratch(name: str, dev, words: int):
+    """A decoupled look-back's scratch for a call of kernel `name` on `dev`:
+    int64 status words (zeroed once, then made stale by each call's
+    generation), the int32 tile ticket (0 between calls) and this call's
+    generation, in [1, 2^31)."""
+    s = _look_back.get((name, dev))
+    if s is None or s[0].numel() < words or s[2] + 1 >= _GEN_LIMIT:
+        cap = max(words, 2 * s[0].numel() if s is not None else 1 << 16)
+        s = [torch.zeros((cap,), dtype=torch.int64, device=dev),
+             torch.zeros((1,), dtype=torch.int32, device=dev), 0]
+        _look_back[(name, dev)] = s
+    s[2] += 1
+    return s
+
+
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors (plain
     version); raises for mixed or other devices."""

@@ -12,10 +12,11 @@ payload valid | left<<1 | right<<4 in the last lane's bits outside
 starts a group), returned as the five lanes of ops/count.py::_pack_sums.
 
 Both are valid at group-last rows, where callers read them. The CUDA
-kernel is csrc/scan.cu; the plain versions follow the reference's XLA
-branch (count.py:239-247): the inclusive cumsum minus its exclusive value
-at the group start, then the clamp, one lane at a time along the innermost
-dimension (exact in int64).
+kernel is csrc/scan.cu: one pass with a decoupled look-back, in 16-bit
+saturating sums for a clamp <= 0xFFFF and 32-bit ones above. The plain
+versions follow the reference's XLA branch (count.py:239-247): the
+inclusive cumsum minus its exclusive value at the group start, then the
+clamp, one lane at a time along the innermost dimension (exact in int64).
 """
 
 from __future__ import annotations
@@ -105,11 +106,19 @@ def sep_rows(key_lanes, pay):
     return cnt == 0, _starts(tuple(key_lanes)), _onehots(cnt, (p >> 16) & 7, (p >> 24) & 7)
 
 
-def _scratch(N, dev):
-    T = -(-N // 1024)
-    return (torch.empty((T,), dtype=torch.int32, device=dev),
-            torch.empty((T * 9,), dtype=torch.int32, device=dev),
-            torch.empty((T * 9,), dtype=torch.int32, device=dev))
+TILE_ROWS = 2048  # csrc/scan.cu's kTile: one look-back status word a tile
+VALUE_WORDS = 18  # csrc/scan.cu: a tile's aggregate and inclusive prefix, 9 words each
+
+
+def _launch(entry, lane_args, N, dev):
+    """Call a scan C entry with its look-back scratch appended."""
+    T = -(-N // TILE_ROWS)
+    status, ticket, gen = kernels.look_back_scratch("scan", dev, T)
+    vals = torch.empty((T * VALUE_WORDS,), dtype=torch.int32, device=dev)
+    rc = entry(*lane_args, status.data_ptr(), status.numel(), vals.data_ptr(), ticket.data_ptr(),
+               gen, kernels.stream(dev))
+    kernels.check(rc, "scan")
+    kernels.count_launch("scan")
 
 
 def _scan_lanes_cuda(pay_lanes, is_start, clamp):
@@ -124,14 +133,9 @@ def _scan_lanes_cuda(pay_lanes, is_start, clamp):
     lanes = tuple(out[i] for i in range(len(pay_lanes)))
     if N == 0:
         return lanes
-    agg_f, agg_v, carry = _scratch(N, dev)
-    rc = kernels.lib().mhm2_scan_lanes(
-        kernels.ptrs(pay_lanes), len(pay_lanes), is_start.data_ptr(), N, clamp,
-        kernels.ptrs(lanes), agg_f.data_ptr(), agg_v.data_ptr(), carry.data_ptr(),
-        kernels.stream(dev),
-    )
-    kernels.check(rc, "scan")
-    kernels.count_launch("scan")
+    _launch(kernels.lib().mhm2_scan_lanes,
+            (kernels.ptrs(pay_lanes), len(pay_lanes), is_start.data_ptr(), N, clamp,
+             kernels.ptrs(lanes)), N, dev)
     return lanes
 
 
@@ -144,11 +148,7 @@ def _scan_packed_cuda(lanes, keymask, clamp):
     sums = tuple(out[i] for i in range(5))
     if N == 0:
         return sums
-    agg_f, agg_v, carry = _scratch(N, dev)
-    rc = kernels.lib().mhm2_scan_packed(
-        kernels.ptrs(lanes), len(lanes), N, keymask & 0xFFFFFFFF, clamp, kernels.ptrs(sums),
-        agg_f.data_ptr(), agg_v.data_ptr(), carry.data_ptr(), kernels.stream(dev),
-    )
-    kernels.check(rc, "scan")
-    kernels.count_launch("scan")
+    _launch(kernels.lib().mhm2_scan_packed,
+            (kernels.ptrs(lanes), len(lanes), N, keymask & 0xFFFFFFFF, clamp, kernels.ptrs(sums)),
+            N, dev)
     return sums

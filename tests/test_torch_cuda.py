@@ -274,6 +274,97 @@ def test_scan_empty(cuda):
     assert all(x.shape == (0,) for x in got) and kernels.launches()["scan"] == before
 
 
+# csrc/scan.cu's tile (kTile) and csrc/join.cu's window (kWin: a tile of
+# kWin - 2 reach rows and two halos of reach rows) and kMaxReach
+SCAN_TILE = scan.TILE_ROWS
+JOIN_WINDOW = 1536
+JOIN_MAX_REACH = join.MAX_KERNEL_REACH
+
+
+@pytest.mark.parametrize("n", [SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 2 * SCAN_TILE - 1,
+                               2 * SCAN_TILE + 1])
+@pytest.mark.parametrize("n_pay", [1, 9])
+def test_scan_lanes_tile_edges(cuda, n, n_pay):
+    """Lengths at the tile's edges, groups across them, n_pay 1 (the sharded
+    path's one lane) and 9 (the 16-bit form's odd last half)."""
+    rng = np.random.default_rng(n + n_pay)
+    is_start = torch.from_numpy(rng.random(n) < 0.002)
+    pays = tuple(torch.from_numpy(rng.integers(0, 1 << 10, n).astype(np.int32))
+                 for _ in range(n_pay))
+    want = scan.group_sums_scan_lanes(pays, is_start, MAX_KMER_COUNT)
+    got = _launched("scan", lambda: scan.group_sums_scan_lanes(
+        tuple(x.to(cuda) for x in pays), is_start.to(cuda), MAX_KMER_COUNT))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("form", ["lanes", "packed"])
+def test_scan_group_over_1000_tiles(cuda, form):
+    """One group over more than 1,000 tiles: every tile's carry comes
+    through the look-back (its nearest inclusive prefix)."""
+    n = 1001 * SCAN_TILE + 5
+    rng = np.random.default_rng(1001)
+    if form == "lanes":
+        is_start = torch.zeros(n, dtype=torch.bool)
+        is_start[0] = True
+        is_start[n - 3] = True
+        pays = (torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)),
+                torch.from_numpy((rng.random(n) < 1e-5).astype(np.int32)))
+        want = scan.group_sums_scan_lanes(pays, is_start, MAX_KMER_COUNT)
+        got = _launched("scan", lambda: scan.group_sums_scan_lanes(
+            tuple(x.to(cuda) for x in pays), is_start.to(cuda), MAX_KMER_COUNT))
+        assert 0 < int(want[1][n - 4]) < MAX_KMER_COUNT
+    else:
+        lanes = _packed_run(rng, 21, n, 1)
+        keymask = finalize._keymask(21, len(lanes))
+        want = scan.group_sums_scan_packed(lanes, keymask, MAX_KMER_COUNT)
+        got = _launched("scan", lambda: scan.group_sums_scan_packed(
+            tuple(x.to(cuda) for x in lanes), keymask, MAX_KMER_COUNT))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("clamp", [0, 1000, MAX_KMER_COUNT, MAX_KMER_COUNT + 1, 1 << 20,
+                                   (1 << 31) - 1])
+def test_scan_inputs_past_the_halves(cuda, clamp):
+    """Inputs past 0xFFFF: at a clamp <= 0xFFFF the 16-bit form clamps each
+    input before its saturating adds; above, the 32-bit form saturates at
+    INT32_MAX (the exact sums pass 2^31 here)."""
+    n = 3 * SCAN_TILE + 77
+    rng = np.random.default_rng(clamp % 1000)
+    is_start = torch.from_numpy(rng.random(n) < 0.001)
+    pays = tuple(torch.from_numpy(rng.integers(0, 1 << v, n).astype(np.int32))
+                 for v in (4, 15, 16, 17, 20, 24, 28, 30, 31))
+    want = scan.group_sums_scan_lanes(pays, is_start, clamp)
+    got = _launched("scan", lambda: scan.group_sums_scan_lanes(
+        tuple(x.to(cuda) for x in pays), is_start.to(cuda), clamp))
+    _same(got, want)
+    assert clamp == 0 or bool((want[8] == clamp).any())
+
+
+def test_scan_calls_back_to_back(cuda):
+    """Calls one after another, of both forms and several sizes, without a
+    synchronise: each takes its tiles from the ticket the last one reset,
+    and its generation makes the last one's status words stale."""
+    rng = np.random.default_rng(5)
+    cases = []
+    for n in (5 * SCAN_TILE + 3, 700, 2 * SCAN_TILE, 9 * SCAN_TILE + 1):
+        is_start = torch.from_numpy(rng.random(n) < 0.0005)
+        pays = tuple(torch.from_numpy(rng.integers(0, 300, n).astype(np.int32)) for _ in range(3))
+        lanes = _packed_run(rng, 33, n, 7)
+        cases.append((is_start, pays, lanes))
+    wants, gots = [], []
+    for is_start, pays, lanes in cases:
+        keymask = finalize._keymask(33, len(lanes))
+        wants.append(scan.group_sums_scan_lanes(pays, is_start, MAX_KMER_COUNT)
+                     + scan.group_sums_scan_packed(lanes, keymask, MAX_KMER_COUNT))
+        gots.append(scan.group_sums_scan_lanes(tuple(x.to(cuda) for x in pays),
+                                               is_start.to(cuda), MAX_KMER_COUNT)
+                    + scan.group_sums_scan_packed(tuple(x.to(cuda) for x in lanes), keymask,
+                                                  MAX_KMER_COUNT))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        _same(got, want)
+
+
 @pytest.mark.parametrize("n", [1, 1024, 3000, 70001])
 def test_compact_emit_lanes(cuda, n):
     """The split's 3-class compaction: multis write W + 5 lanes, singles W + 1."""
@@ -363,6 +454,145 @@ def test_join_separate_lanes(cuda, n, kw, n_keys, max_dup, q_frac):
         tuple(x.to(cuda) for x in lanes), nv, kw, n_q, max_dup))
     _same((got,), (want,))
     assert n < 1000 or 0 < int((want != 0).sum()) < n_q
+
+
+def _join_runs(rng, run_lens, q_frac, kw=2, sep=False):
+    """Merged rows whose equal-key runs have the given lengths, in key order
+    (the last run all-ones), table and query rows mixed at random inside
+    each run; the query ids are a permutation of 0..n_q-1."""
+    n = int(sum(run_lens))
+    keys = np.unique(rng.integers(0, 1 << 31, 2 * len(run_lens)))[: len(run_lens) - 1]
+    assert len(keys) == len(run_lens) - 1
+    keys = np.concatenate([keys, [0xFFFFFFFF]]).astype(np.uint32)
+    rows = np.repeat(keys, run_lens)
+    is_q = rng.random(n) < q_frac
+    n_q = int(is_q.sum())
+    ids = rng.permutation(n_q).astype(np.uint64)
+    if sep:
+        src = rng.integers(0, n + 1, n).astype(np.uint64)
+        src[is_q] = ids | join.SEP_QUERY_BIT
+        lanes = (rows,) * kw + (src, rng.integers(0, 1 << 32, n, dtype=np.uint64))
+    else:
+        src = rng.integers(0, n + 1, n).astype(np.uint64) | (
+            rng.integers(0, 64, n).astype(np.uint64) << 26)
+        src[is_q] = ids | join.QUERY_BIT
+        lanes = (rows,) * kw + (src,)
+    return tuple(_i32(x) for x in lanes), n_q
+
+
+def _join_both(cuda, lanes, n_valid, kw, n_q, max_dup, sep, n_store=None):
+    """The wrapper on CUDA (one launch) and on the CPU; n_store < n_q: only
+    the answers of query ids below it are stored."""
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    Q = n_q if n_store is None else n_store
+    # leave an all-ones block of the answers' size in the allocator's cache:
+    # past one staging bucket the wrapper does not zero-fill, so every answer,
+    # zero or not, must come from the kernel
+    torch.full((Q,), -1, dtype=torch.int64 if sep else torch.int32, device=cuda)
+    if sep:
+        want = join.propagate_answers_sep(lanes, n_valid, kw, n_q, max_dup)[:Q]
+        got = _launched("join", lambda: join.propagate_answers_sep(
+            tuple(x.to(cuda) for x in lanes), nv, kw, Q, max_dup))
+    else:
+        want = join.propagate_answers(lanes, n_valid, kw, 6, n_q, max_dup)[:Q]
+        got = _launched("join", lambda: join.propagate_answers(
+            tuple(x.to(cuda) for x in lanes), nv, kw, 6, Q, max_dup))
+    _same((got,), (want,))
+    return want
+
+
+@pytest.mark.parametrize("sep", [False, True])
+def test_join_all_ones_run_past_tile_and_halos(cuda, sep):
+    """build_edges' all-ones run (the queries of non-UU rows and the padded
+    table rows), longer than a tile and both halos, between ordinary runs."""
+    rng = np.random.default_rng(11 + sep)
+    lens = list(rng.integers(1, 9, 3000)) + [3 * JOIN_WINDOW + 17]
+    lanes, n_q = _join_runs(rng, lens, 0.6, sep=sep)
+    n = lanes[0].shape[0]
+    want = _join_both(cuda, lanes, int(0.7 * n), 2, n_q, 32, sep)
+    assert 0 < int((want != 0).sum()) < n_q
+
+
+@pytest.mark.parametrize("max_dup", [1, 32, 256])
+@pytest.mark.parametrize("sep", [False, True])
+def test_join_runs_at_tile_and_halo_edges(cuda, max_dup, sep):
+    """Reach 0, 31 and 255: run boundaries exactly at tile edges, at a halo's
+    edge (a tile edge +- reach, +- 1) and runs straddling tile edges, most
+    rows queries (a run's few table rows lie far from many of them)."""
+    r = join.reach(max_dup)
+    rng = np.random.default_rng(max_dup + 2 * sep)
+    cuts = set()
+    for t in range(1, 6):
+        e = t * (JOIN_WINDOW - 2 * r)
+        for d in (0, -r, r, -r - 1, r + 1, -r + 1, r - 1, -3 * r - 5, 2 * r + 7):
+            cuts.add(e + d)
+    n = 6 * (JOIN_WINDOW - 2 * r) + 333
+    cuts = sorted(c for c in cuts if 0 < c < n)
+    lens = np.diff([0] + cuts + [n])
+    lens = [int(x) for x in lens if x > 0]
+    lanes, n_q = _join_runs(rng, lens, 0.9, sep=sep)
+    want = _join_both(cuda, lanes, int(0.8 * n), 2, n_q, max_dup, sep)
+    hits = int((want != 0).sum())
+    assert hits == 0 if r == 0 else 0 < hits < n_q
+
+
+@pytest.mark.parametrize("sep", [False, True])
+def test_join_query_ids_past_q(cuda, sep):
+    """Query rows whose ids are >= Q are not stored: the answers below Q
+    are those of the whole query set."""
+    rng = np.random.default_rng(3 + sep)
+    lanes, n_q = _join_runs(rng, list(rng.integers(1, 40, 2000)), 0.6, kw=3, sep=sep)
+    _join_both(cuda, lanes, int(0.8 * lanes[0].shape[0]), 3, n_q, 32, sep, n_store=n_q // 2)
+
+
+@pytest.mark.parametrize("sep,n_q", [(False, 4_500_000), (True, 2_200_000), (True, 5_000_000)])
+def test_join_staged_scatter(cuda, sep, n_q):
+    """More answers than one 4 MB bucket holds (2^20 u32, 2^19 u64): the
+    kernel stages (dest, answer) pairs by bucket, regroups them by 64 KB
+    image and writes each image whole; one launch counted."""
+    rng = np.random.default_rng(n_q + sep)
+    n_runs = n_q // 3
+    lens = list(rng.integers(1, 8, n_runs)) + [1000]
+    lanes, got_q = _join_runs(rng, lens, 0.0, sep=sep)
+    # the queries: n_q rows picked at random among the merged rows
+    n = lanes[0].shape[0]
+    src = lanes[2].numpy().view(np.uint32).copy()
+    is_q = np.zeros(n, bool)
+    is_q[rng.choice(n, min(n_q, n - 1000), replace=False)] = True
+    ids = rng.permutation(int(is_q.sum())).astype(np.uint64)
+    bit = join.SEP_QUERY_BIT if sep else join.QUERY_BIT
+    src[is_q] = (ids | bit).astype(np.uint32)
+    lanes = lanes[:2] + (_i32(src),) + lanes[3:]
+    want = _join_both(cuda, lanes, int(0.8 * n), 2, int(is_q.sum()), 32, sep)
+    assert 0 < int((want != 0).sum()) < len(want)
+
+
+@pytest.mark.parametrize("sep", [False, True])
+def test_join_staged_repeated_query_ids_raise(cuda, sep):
+    """Staged answers (past one 4 MB bucket) whose query ids all repeat one
+    id overflow its bucket: the wrapper raises, it drops no answer
+    silently."""
+    rng = np.random.default_rng(5 + sep)
+    n = 1_500_000
+    lanes, _n_q = _join_runs(rng, [n], 0.9, kw=1, sep=sep)
+    src = lanes[1].numpy().view(np.uint32).copy()
+    bit = join.SEP_QUERY_BIT if sep else join.QUERY_BIT
+    is_q = (src & np.uint32(bit)) != 0
+    src[is_q] = np.uint32(7 | bit)
+    lanes = (lanes[0], _i32(src)) + lanes[2:]
+    lanes = tuple(x.to(cuda) for x in lanes)
+    nv = torch.tensor(n, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="query ids repeat"):
+        if sep:
+            join.propagate_answers_sep(lanes, nv, 1, int(is_q.sum()), 32)
+        else:
+            join.propagate_answers(lanes, nv, 1, 6, int(is_q.sum()), 32)
+
+
+def test_join_reach_past_the_halo_raises(cuda):
+    x = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="halo"):
+        join.propagate_answers((x, x), 0, 1, 6, 4, max_dup=257)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -81,6 +81,51 @@ def test_propagate_equals_reference(T, Q, n_valid, heavy, max_dup):
     assert 0 < (got > 0).sum() < Q
 
 
+def _edge_case(rng, T, n_valid, uu_frac):
+    """build_edges' join shape: a table of T sorted unique keys padded with
+    all-ones rows past n_valid, and two queries a table row, both all-ones
+    where the row is not UU (every pad row too), else a key of the table
+    (a hit) or a random key (a miss)."""
+    keys = np.sort(np.unique(rng.integers(0, 1 << 42, 2 * T, dtype=np.uint64))[:T])
+    tw = _words(keys)
+    tw[n_valid:] = 0xFFFFFFFF
+    uu = np.zeros(T, bool)
+    uu[:n_valid] = rng.random(n_valid) < uu_frac
+    qk = np.where(rng.random(2 * T) < 0.7, keys[rng.integers(0, n_valid, 2 * T)],
+                  rng.integers(0, 1 << 42, 2 * T, dtype=np.uint64))
+    qw = _words(qk)
+    qw[~np.concatenate([uu, uu])] = 0xFFFFFFFF
+    return tw, qw, rng.integers(0, 64, T).astype(np.int64)
+
+
+def test_propagate_all_ones_run_past_the_reference_tile():
+    """The all-ones run that build_edges makes (the queries of non-UU rows
+    and the table's padded rows) longer than the reference kernel's tile:
+    no query in it answers, and the rows around it are unchanged."""
+    T, n_valid = 24000, 14000
+    rng = np.random.default_rng(T)
+    tw, qw, pay = _edge_case(rng, T, n_valid, 0.5)
+    Q = 2 * T
+    n_ones = int((qw == 0xFFFFFFFF).all(1).sum()) + (T - n_valid)
+    assert n_ones > RJ.TILE
+    n_out = -(-(T + Q) // RJ.TILE) * RJ.TILE
+    merged = _merged(tw, qw, pay, n_out)
+    got = PJ.propagate_answers(merged, n_valid, 2, 6, Q, 32).numpy().view(np.uint32)
+
+    (dest, ans), cnts = RJ.propagate_compact(
+        tuple(jnp.asarray(x.numpy().view(np.uint32)) for x in merged), n_valid, kw=2,
+        payload_bits=6, max_dup=32, interpret=True)
+    dest, ans, cnts = np.asarray(dest), np.asarray(ans), np.asarray(cnts)
+    want = np.full(Q, 0xDEADBEEF, np.uint32)
+    for t, c in enumerate(cnts):
+        rows = slice(t * RJ.TILE, t * RJ.TILE + int(c))
+        want[dest[rows]] = ans[rows]
+    assert int(cnts.sum()) == Q
+    assert np.array_equal(got, want)
+    ones = (qw == 0xFFFFFFFF).all(1)
+    assert not got[ones].any() and got[~ones].any()
+
+
 @pytest.mark.parametrize("T,Q", [(6000, 20000), (9000, 30000)])
 def test_table_join_payload_equals_reference(T, Q, monkeypatch):
     rng = np.random.default_rng(T)

@@ -9,6 +9,7 @@ import torch
 from mhm2_proxy_tpu.constants import MAX_KMER_COUNT
 from mhm2_proxy_tpu.ops import pallas_scan as RS
 from mhm2_proxy_tpu_torch.ops import scan as PS
+from torch_common import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _t(a):
@@ -54,6 +55,34 @@ def test_scan_lanes_one_group_past_the_clamp():
     got = PS.group_sums_scan_lanes(tuple(torch.from_numpy(p) for p in pays),
                                    torch.from_numpy(is_start), MAX_KMER_COUNT)
     assert np.array_equal(want[0], np.minimum(np.arange(1, N + 1) * 3, MAX_KMER_COUNT))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("start_every", [0, 50_000])
+def test_scan_lanes_groups_across_tiles_past_0xffff(start_every):
+    """Groups across several reference tiles (one group over all six, or
+    starts every 50,000 rows, off the tile edges) with lane values past
+    0xFFFF on a few rows: the CUDA kernel's 16-bit form clamps each input at
+    0xFFFF before its saturating adds, which must equal the reference's
+    clamp of the exact sum (the sums stay below 2^31, where the reference
+    is exact)."""
+    N = RS.TILE * 6
+    rng = np.random.default_rng(N + start_every)
+    is_start = np.zeros(N, bool)
+    is_start[0] = True
+    if start_every:
+        is_start[::start_every] = True
+    pays = []
+    for _ in range(9):
+        p = rng.integers(0, 4, N).astype(np.int32)
+        big = rng.random(N) < 0.002
+        p[big] = rng.integers(0x10000, 1 << 20, int(big.sum()))
+        pays.append(p)
+    want = _ref_lanes(pays, is_start)
+    got = PS.group_sums_scan_lanes(tuple(torch.from_numpy(p) for p in pays),
+                                   torch.from_numpy(is_start), MAX_KMER_COUNT)
+    assert (want[0] == MAX_KMER_COUNT).any() and (want[0] < MAX_KMER_COUNT).any()
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), w)
 
