@@ -5,7 +5,9 @@
     python3 chip_smoke.py --only callers [DIR]     # phase 2's whole-call rows
     python3 chip_smoke.py --only ladder [DIR]      # phase 5, kernels metered
     python3 chip_smoke.py --only kernels [DIR]     # phase 2's extract, finalize, join,
-                                                   # scan (+ collapse compact) and ssw rows
+                                                   # scan (+ collapse compact), ssw and
+                                                   # minimizer rows
+    python3 chip_smoke.py --only sharded [DIR]     # phase 8 alone, the minimizer metered
 
 (DIR: the checkout whose mhm2_proxy_tpu_torch to run, default this one, so
 that another tree, e.g. a parent commit unpacked beside it, is timed on the
@@ -24,9 +26,12 @@ Phases (any failure raises, and the script exits non-zero):
      contig windows; the ssw kernel on 65,536 read/window pairs under four
      scoring profiles, one past a signed byte, and at 2 x 150 bp reads
      (Lq 150, Lr 214); the minimizer kernel on 131,072-read blocks at
-     k = 21, 33, 77, 99 with 4 shards, a (2048, 2048) contig-window block
-     and 4096 shards; the join kernel at the k = 21 edge join's shapes
-     (fused lanes, separate lanes, and the ladder's all-ones mix) and at
+     k = 21, 33, 55, 77, 99 with 4 shards, a (2048, 2048) contig-window
+     block and 4096 shards; the finalize kernel (group sums, calls, purge
+     and compaction in one launch) on two merged read blocks at k = 21 and
+     at k = 77 (separate payload), purge on and off; the join kernel at
+     the k = 21 edge join's shapes (fused lanes, separate lanes, and the
+     ladder's all-ones mix) and at
      the k = 77 and 99 joins' (6 and 8 key lanes, 75,497,472 merged rows);
      table_lookup on CUDA against the CPU at a 30M-row index; the count
      store + traversal on CUDA against the same on the CPU at
@@ -36,10 +41,11 @@ Phases (any failure raises, and the script exits non-zero):
      and the sharded store (4 shards, a small bucket cap: spill rounds, a
      contig pass) on CUDA against the CPU at k = 21 and 77: per-shard
      tables, exchange statistics, sharded_lookup's answers, contigs and
-     stitch rounds; and the compact and sort kernels' main callers as whole
-     calls (_merge_sorted_sets, _compact_keep, _split_emit at real widths),
-     kernel and torch around it, against the same calls through the plain
-     versions on the card;
+     stitch rounds; and the compact, sort and finalize kernels' main
+     callers as whole calls (_merge_sorted_sets, _compact_keep, _split_emit
+     at real widths, final_from_sorted_packed and final_from_sorted_sep on
+     the finalize rows' runs), kernel and torch around it, against the
+     same calls through the plain versions on the card;
   3. the CI sample (ci/make_sample.py's default community, regenerated with
      the port's synth) end to end through the CLI entry point with
      --post-asm-align --post-asm-abundance, then --post-asm-only on the same
@@ -141,7 +147,9 @@ INT32_LANES_PER_SM = 64
 # extract, per output row for sort, per DP cell for ssw), not a kernel's
 # search, scan, index or loop overhead
 OPS_PER_ROW = dict(
-    finalize=32,  # 9 one-hot decodes and sums, the ext calls, the purge test
+    # 9 one-hot decodes and sums, the ext calls, the purge test (32), and the
+    # kept row's class test, count and destination (3)
+    finalize=35,
     compact=3,  # class test, count, destination
     scan_packed=28,  # 9 one-hot decodes and sums, the key compare, 5 packs
     # the least the recurrence of csrc/ssw.cu's note needs, with sm_90's DPX
@@ -578,56 +586,60 @@ def phase_kernels(results):
     torch.cuda.empty_cache()
 
 
-def phase_finalize(record, gen):
-    """The finalize kernel against its plain version: merged runs of two
-    extracted read blocks (131072 x 100 bp reads of a 2.25 Mbp genome),
-    packed at k = 21 and with a separate payload at k = 77, purge on and
-    off. Returns the genome (the collapse rows read from it too)."""
+def finalize_runs(gen):
+    """The finalize inputs of the main path: a 2.25 Mbp genome, and two
+    extracted read blocks of it (131072 x 100 bp reads) merged, packed at
+    k = 21 (28,311,552 rows) and key-sorted with a separate payload at
+    k = 77 (13,631,488 rows; its 5 key lanes, then the payload lane)."""
     import torch
 
-    from mhm2_proxy_tpu_torch.ops import count, extract, finalize, sort
+    from mhm2_proxy_tpu_torch.ops import count, extract, sort
     from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
 
-    dev = "cuda"
-    # finalize: purge True and False over a merged run of two extracted read
-    # blocks (131072 x 100 bp reads of a 2.25 Mbp genome)
-    genome = torch.randint(0, 4, (2_250_000,), dtype=torch.uint8, device=dev, generator=gen)
-    runs = []
+    genome = torch.randint(0, 4, (2_250_000,), dtype=torch.uint8, device="cuda", generator=gen)
+    packed, sep = [], []
     for _ in range(2):
         codes, qual, lens = sim_read_block(genome, 131072, 128, 100, gen)
-        runs.append(lexsort_lanes(extract._extract(codes, qual, lens, 21, True)))
-    merged = sort.merge_sorted_lanes(runs[0], runs[1], 2)
-    km = finalize._keymask(21, 2)
-    for purge in (True, False):
-        kern = lambda: finalize._scan_purge_cuda(merged, None, km, 2, purge)  # noqa: E731
-        plain = lambda: finalize._scan_purge_plain(merged, None, km, 2, purge)  # noqa: E731
-        (kd, kf), (pd, pf) = kern(), plain()
-        err = max(max_abs_err(kd, pd), max_abs_err((kf,), (pf,)))
-        N = merged[0].shape[0]
-        record("finalize", err, cuda_ms(kern), cuda_ms(plain), f"{N} rows k=21 purge={purge}",
-               nbytes(merged, kd, kf), N * OPS_PER_ROW["finalize"])
-    del runs, merged
+        packed.append(lexsort_lanes(extract._extract(codes, qual, lens, 21, True)))
+    for _ in range(2):
+        codes, qual, lens = sim_read_block(genome, 131072, 128, 100, gen)
+        sep.append(count.block_to_raw_run_sep(codes, qual, lens, 77))
+    return (genome, sort.merge_sorted_lanes(packed[0], packed[1], 2),
+            sort.merge_sorted_lanes(sep[0], sep[1], 5))
 
-    # finalize, separate payload (k = 77): two extracted read blocks in the
-    # record layout, key-sorted and merged on their 5 key lanes
-    runs = []
-    for _ in range(2):
-        codes, qual, lens = sim_read_block(genome, 131072, 128, 100, gen)
-        runs.append(count.block_to_raw_run_sep(codes, qual, lens, 77))
-    merged = sort.merge_sorted_lanes(runs[0], runs[1], 5)
-    keys, pay = merged[:5], merged[5]
-    for purge in (True, False):
-        kern = lambda: finalize._scan_purge_cuda(keys, pay, 0xFFFFFFFF, 2, purge)  # noqa: E731
-        plain = lambda: finalize._scan_purge_plain(keys, pay, 0xFFFFFFFF, 2, purge)  # noqa: E731
-        (kd, kf), (pd, pf) = kern(), plain()
-        err = max(max_abs_err(kd, pd), max_abs_err((kf,), (pf,)))
-        N = keys[0].shape[0]
-        record("finalize", err, cuda_ms(kern), cuda_ms(plain),
-               f"{N} rows k=77 separate payload purge={purge}", nbytes(keys, pay, kd, kf),
-               N * OPS_PER_ROW["finalize"])
-    del runs, merged, keys, pay
+
+def phase_finalize(record, gen):
+    """The finalize kernel (scan_purge_compact: group sums, calls, purge and
+    compaction in one launch) against its plain version on finalize_runs'
+    merged runs, purge on and off. Returns the genome (the collapse rows
+    read from it too). A tree from before the fused kernel has no
+    scan_purge_compact: its finalize and compact pair is timed by
+    `--only callers` as whole final_from_sorted_* calls."""
+    from mhm2_proxy_tpu_torch.ops import finalize
+
+    genome, merged, merged_sep = finalize_runs(gen)
+    if not hasattr(finalize, "scan_purge_compact"):
+        log("[kernel] finalize: no scan_purge_compact in this tree (see --only callers)")
+        return genome
+    for what, keys, pay, k, W in (("k=21", merged, None, 21, 2),
+                                  ("k=77 separate payload", merged_sep[:5], merged_sep[5], 77, 6)):
+        keymask = finalize._keymask(k, len(keys)) if pay is None else 0xFFFFFFFF
+        for purge in (True, False):
+            args = (keys, pay, keymask, W, 2, purge)
+            kern = lambda: finalize._scan_purge_compact_cuda(*args)  # noqa: E731
+            plain = lambda: finalize._scan_purge_compact_plain(*args)  # noqa: E731
+            ko, po = kern(), plain()
+            err = max_abs_err(ko[1:-1] + (ko[-1][None],), po[1:-1] + (po[-1][None],))
+            err = max(err, max_abs_err(tuple(ko[0].T), tuple(po[0].T)))
+            N = keys[0].shape[0]
+            # bytes: every input lane read once; every output row written once
+            # (the kept rows and the fill behind them): W words and the payload
+            record("finalize", err, cuda_ms(kern), cuda_ms(plain),
+                   f"{N} rows {what} purge={purge}, {int(po[-1])} kept",
+                   nbytes(keys, pay, ko), N * OPS_PER_ROW["finalize"])
+            del ko, po
+    del merged, merged_sep
     return genome
-
 
 
 def phase_join(record, gen):
@@ -685,15 +697,17 @@ MINIMIZER_OPS = 6 + 6 + 4 + 12 + 34 + 8
 def phase_minimizer(record, gen):
     """The minimizer kernel against its plain version at the sharded path's
     shapes: read blocks of 131,072 reads (L = max(128, k + 32), the
-    community's 100 bp reads padded) at k = 21, 33, 77, 99 with 4 shards, a
-    (2048, 2048) contig-window block at k = 33, and 4096 shards."""
+    community's 100 bp reads padded) at k = 21, 33, 55, 77, 99 with 4
+    shards, a (2048, 2048) contig-window block at k = 33, and 4096
+    shards."""
     import torch
 
     from mhm2_proxy_tpu_torch.constants import minimizer_len_for_k
     from mhm2_proxy_tpu_torch.ops import minimizer
 
-    cases = [(21, 131072, 128, 4), (33, 131072, 128, 4), (77, 131072, 128, 4),
-             (99, 131072, 131, 4), (33, 2048, 2048, 4), (21, 131072, 128, 4096)]
+    cases = [(21, 131072, 128, 4), (33, 131072, 128, 4), (55, 131072, 128, 4),
+             (77, 131072, 128, 4), (99, 131072, 131, 4), (33, 2048, 2048, 4),
+             (21, 131072, 128, 4096)]
     for k, B, L, S in cases:
         m = minimizer_len_for_k(k)
         codes = torch.randint(0, 5, (B, L), dtype=torch.uint8, device="cuda", generator=gen)
@@ -1034,14 +1048,16 @@ def phase_lookup(gen):
 
 
 def phase_callers(seed: int = 20261016):
-    """The compact and sort kernels' main callers as whole calls, timed as
-    the caller sees them (the kernel and the torch around it), each against
-    the same call through the plain versions on the card (kernels.use_kernel
-    answering False), bit-equal: _merge_sorted_sets (the split LSM's merge
-    at k = 21: two deduped sets of 18,350,080 rows, W = 2 key lanes + 5
-    packed sum lanes), _compact_keep (36,700,160 rows, W = 2 + one payload
-    lane, a fifth kept) and _split_emit (the k = 21 collapse shape,
-    163,577,856 rows, W = 2 + 5 lanes, a quarter multis, a sixth singles).
+    """The compact, sort and finalize kernels' main callers as whole calls,
+    timed as the caller sees them (the kernels and the torch around them),
+    each against the same call through the plain versions on the card
+    (kernels.use_kernel answering False), bit-equal: _merge_sorted_sets (the
+    split LSM's merge at k = 21: two deduped sets of 18,350,080 rows, W = 2
+    key lanes + 5 packed sum lanes), _compact_keep (36,700,160 rows, W = 2 +
+    one payload lane, a fifth kept), _split_emit (the k = 21 collapse shape,
+    163,577,856 rows, W = 2 + 5 lanes, a quarter multis, a sixth singles),
+    and final_from_sorted_packed (finalize_runs' k = 21 run, purge on and
+    off) and final_from_sorted_sep (its k = 77 run, purge).
     It runs whichever mhm2_proxy_tpu_torch comes first on sys.path, so that
     `--callers DIR` times another tree's callers on the same inputs."""
     import torch
@@ -1099,6 +1115,19 @@ def phase_callers(seed: int = 20261016):
     times["_split_emit"] = run("_split_emit", f"{N} rows, W=2 + 5 lanes (k=21 collapse)",
                                lambda: count._split_emit(words, p, keep_m, keep_s))
     del words, p, keep_m, keep_s
+    # finalize: the kernel (and, in a tree from before the fused kernel, the
+    # compact launch after it) and the table's unpacking, as a round runs it
+    _genome, merged, merged_sep = finalize_runs(gen)
+    N = merged[0].shape[0]
+    for purge in (True, False):
+        times[f"final_from_sorted_packed purge={purge}"] = run(
+            "final_from_sorted_packed", f"{N} rows k=21 purge={purge}",
+            lambda: count.final_from_sorted_packed(merged, 21, 2, purge=purge))
+    N = merged_sep[0].shape[0]
+    times["final_from_sorted_sep"] = run(
+        "final_from_sorted_sep", f"{N} rows k=77 separate payload purge=True",
+        lambda: count.final_from_sorted_sep(merged_sep, 77, 6))
+    del merged, merged_sep
     torch.cuda.empty_cache()
     return times
 
@@ -1421,8 +1450,9 @@ def phase_real(work):
     check(fdig == ARCTIC3_FASTA_SHA256, "final_assembly.fasta differs from the JAX package's")
 
 
-def phase_arctic(work):
-    """The full --arctic-scale community through the CLI, default k ladder."""
+def arctic_community(work):
+    """The full --arctic-scale community's FASTQ (checked against its
+    digest) and genomes."""
     d = os.path.join(work, "arctic12")
     t0 = time.perf_counter()
     fq, gens, n_pairs = make_community(d, "arctic-scale", 12, 2_250_000, 0, 8.0, 100, 12, True)
@@ -1430,6 +1460,12 @@ def phase_arctic(work):
     log(f"[arctic] {sum(map(len, gens))} bp in 12 genomes, {n_pairs} pairs ({2 * n_pairs} "
         f"reads), fastq sha256 {digest}, generated in {time.perf_counter() - t0:.1f} s")
     check(digest == ARCTIC12_FASTQ_SHA256, "arctic-scale FASTQ differs (numpy drift)")
+    return fq, gens
+
+
+def phase_arctic(work):
+    """The full --arctic-scale community through the CLI, default k ladder."""
+    fq, gens = arctic_community(work)
     out = os.path.join(work, "arctic12_run")
     from mhm2_proxy_tpu_torch.kcount import KmerCountStore
 
@@ -1557,13 +1593,15 @@ def sharded_union_digest(words, count, left, right, n):
     return table_digest(words[perm], count[perm], left[perm], right[perm], n)
 
 
-def phase_sharded_arctic(work, fq, gens, single_out, single_k21):
+def phase_sharded_arctic(work, fq, gens, single_out=None, single_k21=None):
     """Phase 8: the full community through the CLI with --shards 4 on the
     default ladder (4 shards on the card): each round's exchange, stitch
     rounds and volume, walls and peak memory; the sharded path's launch
-    counts; at k = 21 the union of the shard tables equals phase 5's
-    single-device table; >= 95% exact-substring bases; the contigs that
-    differ from phase 5's FASTA (only cycle break points may)."""
+    counts and the minimizer's device ms; >= 95% exact-substring bases;
+    and, given phase 5's output (single_out, single_k21), at k = 21 the
+    union of the shard tables equals phase 5's single-device table, and the
+    contigs that differ from phase 5's FASTA (only cycle break points
+    may)."""
     from mhm2_proxy_tpu_torch.parallel import ShardedCounter
 
     out = os.path.join(work, "arctic12_shards4")
@@ -1600,19 +1638,21 @@ def phase_sharded_arctic(work, fq, gens, single_out, single_k21):
     t0 = time.perf_counter()
     union = [sharded_union_digest(*t) for t in k21.tables]
     log(f"[sharded] k=21: union of the shard tables {union[0][0]} rows, digest "
-        f"{union[0][1][:16]}; single-device {single_k21[0]} rows, digest {single_k21[1][:16]} "
-        f"(hashed in {time.perf_counter() - t0:.1f} s after the run)")
-    check(union == [single_k21], "k=21: the union of the shard tables differs from the "
-          "single-device table")
+        f"{union[0][1][:16]} (hashed in {time.perf_counter() - t0:.1f} s after the run)")
+    if single_k21 is not None:
+        log(f"[sharded] k=21: single-device {single_k21[0]} rows, digest {single_k21[1][:16]}")
+        check(union == [single_k21], "k=21: the union of the shard tables differs from the "
+              "single-device table")
     seqs = read_fasta_seqs(os.path.join(out, "final_assembly.fasta"))
     tot = sum(map(len, seqs))
     match = exact_substring_bases(seqs, gens)
     frac = match / max(tot, 1)
-    single = set(read_fasta_seqs(os.path.join(single_out, "final_assembly.fasta")))
-    differ = sum(1 for sq in seqs if sq not in single)
-    log(f"[sharded] {asm_metrics(seqs)}; exact-substring bases {match}/{tot} = {frac:.4f}; "
-        f"{differ} of {len(seqs)} printed contigs are not in phase 5's FASTA "
-        f"({len(single)} contigs)")
+    log(f"[sharded] {asm_metrics(seqs)}; exact-substring bases {match}/{tot} = {frac:.4f}")
+    if single_out is not None:
+        single = set(read_fasta_seqs(os.path.join(single_out, "final_assembly.fasta")))
+        differ = sum(1 for sq in seqs if sq not in single)
+        log(f"[sharded] {differ} of {len(seqs)} printed contigs are not in phase 5's FASTA "
+            f"({len(single)} contigs)")
     check(tot > 0 and frac >= 0.95, frac)
     return counts, m_ms
 
@@ -1768,13 +1808,15 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no CUDA device", file=sys.stderr)
         return 2
-    # `--only callers|ladder|kernels [DIR]`: only phase_callers, only phase 5
-    # (the 27 Mbp ladder, its kernels metered), or only phase 2's extract,
-    # finalize, join, collapse (scan, compact) and ssw rows, on the package
-    # of DIR (default this checkout), e.g. a parent tree unpacked beside it
+    # `--only callers|ladder|kernels|sharded [DIR]`: only phase_callers, only
+    # phase 5 (the 27 Mbp ladder, its kernels metered), only phase 2's
+    # extract, finalize, join, collapse (scan, compact), ssw and minimizer
+    # rows, or only phase 8 (the 27 Mbp community with --shards 4, the
+    # minimizer metered), on the package of DIR (default this checkout),
+    # e.g. a parent tree unpacked beside it
     only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
-    if argv and only not in ("callers", "ladder", "kernels"):
-        print("usage: chip_smoke.py [--only callers|ladder|kernels [PACKAGE_DIR]]",
+    if argv and only not in ("callers", "ladder", "kernels", "sharded"):
+        print("usage: chip_smoke.py [--only callers|ladder|kernels|sharded [PACKAGE_DIR]]",
               file=sys.stderr)
         return 2
     root = os.path.abspath(argv[2]) if len(argv) > 2 else ROOT
@@ -1802,10 +1844,14 @@ def main(argv):
             phase_join(record, gen)
             phase_collapse_kernels(record, genome, gen)
             phase_ssw(record, gen)
+            phase_minimizer(record, gen)
             return 0
         work = os.path.join(ROOT, "chip_smoke_work")
         try:
-            phase_arctic(work)
+            if only == "ladder":
+                phase_arctic(work)
+            else:
+                phase_sharded_arctic(work, *arctic_community(work))
         finally:
             shutil.rmtree(work, ignore_errors=True)
         return 0

@@ -71,13 +71,6 @@ struct CompactDesc {
   unsigned long long gen;          // this call's generation, in [1, 2^31)
 };
 
-// status word (lookback.cuh): generation << 33 | state << 31 | value
-// (value < 2^31)
-__device__ __forceinline__ unsigned long long pack_status(unsigned long long gen,
-                                                          unsigned long long state, int64_t v) {
-  return (gen << 33) | (state << 31) | (unsigned long long)v;
-}
-
 // the class code (0-3, or kNoClass) of each of a thread's 16 rows, 4 bits each
 __device__ __forceinline__ unsigned long long load_codes(const CompactDesc& d, int64_t row0) {
   unsigned long long codes = 0;
@@ -122,26 +115,6 @@ __device__ __forceinline__ unsigned long long load_codes(const CompactDesc& d, i
   return codes;
 }
 
-// rows of class c among the tiles before `t`: warp-wide look-back over
-// the predecessors' status words, 32 at a time, until an inclusive prefix
-__device__ int64_t look_back(const CompactDesc& d, int64_t t, int c) {
-  const int lane = threadIdx.x & 31;
-  int64_t excl = 0;
-  for (int64_t p = t - 1;; p -= 32) {
-    const int64_t idx = p - lane;
-    unsigned long long s = 0;
-    if (idx >= 0) s = wait_status<false>(d.status + idx * d.n_classes + c, d.gen, 33, 31);
-    const bool is_prefix = idx < 0 || ((s >> 31) & 3ull) == kPrefix;
-    const unsigned pm = __ballot_sync(0xffffffffu, is_prefix);
-    const int stop = pm ? __ffs(pm) - 1 : 31;
-    int64_t v = (lane <= stop && idx >= 0) ? (int64_t)(s & 0x7FFFFFFFull) : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    excl += v;
-    if (pm) return excl;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads) compact_kernel(const __grid_constant__ CompactDesc d) {
   __shared__ uint16_t s_src[kTile];  // the tile's rows, partitioned by class
   __shared__ unsigned long long s_warp[kWarps];
@@ -183,11 +156,11 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(const __grid_constant
   if (warp < d.n_classes) {
     const int64_t c_cnt = (int64_t)((tot >> (16 * warp)) & 0xFFFF);
     unsigned long long* own = d.status + t * d.n_classes + warp;
-    if (lane == 0) st_relaxed(own, pack_status(d.gen, t == 0 ? kPrefix : kAggregate, c_cnt));
-    const int64_t excl = t == 0 ? 0 : look_back(d, t, warp);
+    if (lane == 0) st_relaxed(own, count_status(d.gen, t == 0 ? kPrefix : kAggregate, c_cnt));
+    const int64_t excl = t == 0 ? 0 : count_look_back(d.status + warp, d.n_classes, t, d.gen);
     if (lane == 0) {
       s_excl[warp] = excl;
-      if (t > 0) st_relaxed(own, pack_status(d.gen, kPrefix, excl + c_cnt));
+      if (t > 0) st_relaxed(own, count_status(d.gen, kPrefix, excl + c_cnt));
     }
   }
 

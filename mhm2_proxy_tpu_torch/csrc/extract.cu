@@ -22,10 +22,10 @@
 // quality with 16-byte loads into shared memory, one byte a base (the
 // packing code, N as G, and the extension code), then packs each read once
 // into two 2-bit streams of u32 words, 16 bases a word: the forward bases,
-// and their reverse complement (each forward word complemented and its
-// fields reversed, the words in reverse order). A position's W forward
-// words are then W + 1 adjacent stream words joined by __funnelshift_l and
-// cut by the end masks; its reverse-complement words come the same way from
+// and their reverse complement (pack2bit.cuh, shared with minimizer.cu).
+// A position's W forward words are then W + 1 adjacent stream words joined
+// by __funnelshift_l and cut by the end masks; its reverse-complement
+// words come the same way from
 // the reverse stream at L - i - k. That is O(W) operations and 2 (W + 1)
 // shared loads a position, all broadcast within the 16 neighbouring
 // positions that share a word. The canonical compare and the extension
@@ -35,6 +35,7 @@
 // parameters, so the words stay in registers. No length limit below the
 // 227 KB of shared memory a block can have (reads of ~150,000 bases).
 #include "common.cuh"
+#include "pack2bit.cuh"
 
 namespace {
 
@@ -48,27 +49,9 @@ constexpr int kMaxSmem = 227 * 1024;
 // quality, else 5)
 __device__ __forceinline__ uint32_t base_bytes(uint32_t c, uint32_t q) {
   const uint32_t ge4 = __vcmpgeu4(c, 0x04040404u);
-  const uint32_t c2 = (c & ~ge4) | (0x02020202u & ge4);
   const uint32_t good = __vcmpne4(q, 0u) & ~ge4;
   const uint32_t ext = (c & good) | (0x05050505u & ~good);
-  return c2 | (ext << 2);
-}
-
-// the packing codes of four bytes (first base in the low byte) as 8 bits,
-// first base highest: one multiply places the four 2-bit fields in the top
-// byte without carries
-__device__ __forceinline__ uint32_t pack4(uint32_t x) {
-  return ((x & 0x03030303u) * 0x40100401u) >> 24;
-}
-
-__device__ __forceinline__ uint32_t pack16(uint4 v) {
-  return (pack4(v.x) << 24) | (pack4(v.y) << 16) | (pack4(v.z) << 8) | pack4(v.w);
-}
-
-// the 16 2-bit fields of x in reverse order
-__device__ __forceinline__ uint32_t rev2(uint32_t x) {
-  x = __brev(x);
-  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+  return code_bytes(c) | (ext << 2);
 }
 
 __device__ __forceinline__ uint32_t comp_ext(uint32_t e) { return e < 4 ? 3u - e : e; }
@@ -118,25 +101,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = threadIdx.x; r < nr; r += kThreads) slen[r] = lens[b0 + r];
   __syncthreads();
 
-  // 2. each read's forward and reverse-complement 2-bit streams: forward
-  // word m holds bases 16m..16m+15; reverse word NF-1-m is its complement
-  // with the fields reversed, so the reverse stream holds the reverse
-  // complement from its base 16 NF - L on; both end in W + 1 zero words
-  for (int u = threadIdx.x; u < nr * tl.NS; u += kThreads) {
-    const int r = u / tl.NS, m = u - r * tl.NS;
-    uint32_t* f = fw + r * tl.NS;
-    uint32_t* g = rv + r * tl.NS;
-    if (m < tl.NF) {
-      uint32_t w = pack16(reinterpret_cast<const uint4*>(sb + r * tl.LS)[m]);
-      const int nb = L - 16 * m;  // bases of the read in this word
-      if (nb < 16) w &= ~0u << (32 - 2 * nb);
-      f[m] = w;
-      g[tl.NF - 1 - m] = rev2(~w);
-    } else {
-      f[m] = 0;
-      g[m] = 0;
-    }
-  }
+  // 2. each read's forward and reverse-complement 2-bit streams, ending in
+  // W + 1 zero words (pack2bit.cuh)
+  build_streams<kThreads>(sb, nr, L, tl.LS, tl.NF, tl.NS, fw, rv);
   __syncthreads();
 
   // 3. one position a thread, neighbouring threads on neighbouring rows

@@ -1,6 +1,7 @@
-// The decoupled look-back's shared pieces (compact.cu, scan.cu): tiles
-// taken by atomic ticket, status words tagged with the call's generation,
-// and the poll that waits for a predecessor's word.
+// The decoupled look-back's shared pieces (compact.cu, finalize.cu, and
+// scan.cu through seglookback.cuh): tiles taken by atomic ticket, status
+// words tagged with the call's generation, the poll that waits for a
+// predecessor's word, and the look-back over tiles' row counts.
 //
 // Hopper starts a grid's blocks in no order, so a tile may only wait on
 // tiles whose blocks already run: each block takes its tile from an atomic
@@ -61,5 +62,34 @@ static __device__ __forceinline__ unsigned long long wait_status(const unsigned 
     const unsigned long long s = Acquire ? ld_acquire(p) : ld_relaxed(p);
     if ((s >> gen_shift) == gen && ((s >> state_shift) & 3ull) != 0) return s;
     __nanosleep(20);
+  }
+}
+
+// A count's status word: generation << 33 | state << 31 | value (< 2^31).
+static __device__ __forceinline__ unsigned long long count_status(unsigned long long gen,
+                                                                  unsigned long long state,
+                                                                  int64_t v) {
+  return (gen << 33) | (state << 31) | (unsigned long long)v;
+}
+
+// Warp-wide: the sum of the counts of the tiles before t, whose status
+// words lie at status[i * stride], looking back 32 predecessors at a time
+// until an inclusive prefix.
+static __device__ int64_t count_look_back(const unsigned long long* status, int64_t stride,
+                                          int64_t t, unsigned long long gen) {
+  const int lane = threadIdx.x & 31;
+  int64_t excl = 0;
+  for (int64_t p = t - 1;; p -= 32) {
+    const int64_t idx = p - lane;
+    unsigned long long s = 0;
+    if (idx >= 0) s = wait_status<false>(status + idx * stride, gen, 33, 31);
+    const bool is_prefix = idx < 0 || ((s >> 31) & 3ull) == kPrefix;
+    const unsigned pm = __ballot_sync(0xffffffffu, is_prefix);
+    const int stop = pm ? __ffs(pm) - 1 : 31;
+    int64_t v = (lane <= stop && idx >= 0) ? (int64_t)(s & 0x7FFFFFFFull) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (pm) return excl;
   }
 }

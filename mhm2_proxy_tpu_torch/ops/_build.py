@@ -38,6 +38,7 @@ P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64
 U32 = ctypes.c_uint32
+U64 = ctypes.c_uint64
 
 # C entry points -> argtypes (each returns a cudaError_t as int, but for
 # those in _RESTYPES)
@@ -45,7 +46,7 @@ _SIGNATURES = {
     "mhm2_extract": [P, P, P, I64, I32, I32, I32, P, I32, P],
     "mhm2_merge": [P, P, I64, P, P, I64, P, P, I32, I32, P, I64, P],
     "mhm2_merge_tile_rows": [I32],
-    "mhm2_finalize": [P, I32, I32, I64, U32, I32, I32, P, P, P, P, P, P],
+    "mhm2_finalize": [P, I32, I32, I64, U32, I32, I32, I32, P, P, P, P, I64, P, P, I64, P],
     "mhm2_compact": [P, P, I32, P, I32, I64, I32, I32, P, P, P, P, P, P, P, I32, P, P, I64, P,
                      I64, P],
     "mhm2_join": [P, I32, P, I64, P, I32, I32, P, I64, P, I64, P],
@@ -54,7 +55,7 @@ _SIGNATURES = {
     "mhm2_scan_lanes": [P, I32, P, I64, I32, P, P, I64, P, P, I64, P],
     "mhm2_scan_packed": [P, I32, I64, U32, I32, P, P, I64, P, P, I64, P],
     "mhm2_ssw": [P, P, P, P, I64, I32, I32, I32, I32, I32, I32, I32, P, P, P],
-    "mhm2_minimizer": [P, I64, I32, I32, I32, U32, P, P],
+    "mhm2_minimizer": [P, I64, I32, I32, I32, U32, U64, U32, P, P],
 }
 
 

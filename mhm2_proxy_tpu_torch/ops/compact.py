@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from . import kernels
-from .u32 import u32
+from .u32 import ONES, u32
 
 MAX_CLASSES = 4
 MAX_EMIT = 4
@@ -77,6 +77,15 @@ def compact_lanes(lanes, flags, n_classes: int, emit, layouts, fills=None):
     if kernels.use_kernel(flags, *lanes):
         return _compact_cuda(lanes, flags, n_classes, emit, layouts, fills)
     return _compact_plain(lanes, flags, emit, layouts, fills)
+
+
+def words_layout(W: int, n_pay: int, n_key: int | None = None):
+    """compact_lanes layout and fills of a table: (N, W) words (all-ones
+    tail) from the first n_key lanes (default W; the columns past them 0),
+    then n_pay payload lanes (zero tails) from the lanes after those."""
+    n_key = W if n_key is None else n_key
+    words = tuple(range(n_key)) + (None,) * (W - n_key)
+    return (words,) + tuple((n_key + i,) for i in range(n_pay)), (ONES,) + (0,) * n_pay
 
 
 def _classes(flags):

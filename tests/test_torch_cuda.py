@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from mhm2_proxy_tpu_torch.constants import MAX_KMER_COUNT
+from mhm2_proxy_tpu_torch.constants import MAX_KMER_COUNT, words32_for_k
 from mhm2_proxy_tpu_torch.ops import (compact, extract, finalize, join, kernels, lookup, scan,
                                       sort, ssw)
 from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
@@ -184,6 +184,19 @@ def _packed_run(rng, k, n, n_keys):
     return lexsort_lanes(tuple(_i32(rows[:, i]) for i in range(weff)))
 
 
+def _finalize_same(cuda, lanes, k, purge, pay=None):
+    """scan_purge_compact on the card (one launch) equals the plain version:
+    words, payload lanes and the kept count."""
+    W = words32_for_k(k)
+    want = finalize.scan_purge_compact(lanes, k, W, purge=purge, pay=pay)
+    got = _launched("finalize", lambda: finalize.scan_purge_compact(
+        tuple(x.to(cuda) for x in lanes), k, W, purge=purge,
+        pay=None if pay is None else pay.to(cuda)))
+    assert len(got) == len(want)
+    _same(got, want)
+    return int(want[-1])
+
+
 @pytest.mark.parametrize("k", [21, 33, 55, 99])
 @pytest.mark.parametrize("purge", [True, False])
 def test_finalize(cuda, k, purge):
@@ -191,11 +204,7 @@ def test_finalize(cuda, k, purge):
     # n_keys=2 over 70001 rows: groups of ~33k rows span ~33 blocks; one
     # key of 68400 rows (72000 less the sentinel tail) passes the u16 clamp
     for n, n_keys in ((1, 1), (3001, 300), (70001, 2), (72000, 1)):
-        lanes = _packed_run(rng, k, n, n_keys)
-        want = finalize.scan_purge(lanes, k, purge=purge)
-        got = _launched("finalize", lambda: finalize.scan_purge(
-            tuple(x.to(cuda) for x in lanes), k, purge=purge))
-        _same(got[0] + (got[1],), want[0] + (want[1],))
+        _finalize_same(cuda, _packed_run(rng, k, n, n_keys), k, purge)
 
 
 def _sep_run(rng, k, n, n_keys):
@@ -220,10 +229,88 @@ def test_finalize_separate_payload(cuda, k, purge):
     # 30000 rows of 2 keys at count 1-3: groups span ~15 blocks, past the clamp
     for n, n_keys in ((1, 1), (3001, 300), (30001, 2)):
         lanes = _sep_run(rng, k, n, n_keys)
-        want = finalize.scan_purge(lanes[:-1], k, purge=purge, pay=lanes[-1])
-        got = _launched("finalize", lambda: finalize.scan_purge(
-            tuple(x.to(cuda) for x in lanes[:-1]), k, purge=purge, pay=lanes[-1].to(cuda)))
-        _same(got[0] + (got[1],), want[0] + (want[1],))
+        _finalize_same(cuda, lanes[:-1], k, purge, pay=lanes[-1])
+
+
+FINALIZE_TILE = scan.TILE_ROWS
+
+
+def _group_run(rng, k, idx, sep, n_sent=0, ext=None):
+    """A sorted run whose row r holds the idx[r]-th smallest of idx.max() + 1
+    random keys (idx non-decreasing), then n_sent sentinel rows: packed (the
+    7-bit payload in the last lane's free bits) or, with sep, weff key lanes
+    and a count-1 payload lane. ext: (left, right) codes per row, random
+    0-5 by default."""
+    weff = -(-2 * k // 32)
+    free = 32 * weff - 2 * k
+    n_keys = int(idx.max()) + 1 if len(idx) else 0
+    keys = rng.integers(0, 1 << 32, (2 * n_keys + 8, weff), dtype=np.uint64).astype(np.uint32)
+    if not sep:
+        keys[:, -1] &= np.uint32((0xFFFFFFFF >> free) << free)
+    keys = np.unique(keys, axis=0)
+    keys = keys[(keys != 0xFFFFFFFF).any(1)][:n_keys]  # no all-ones (sentinel) key
+    left, right = ext if ext is not None else (rng.integers(0, 6, len(idx)),
+                                               rng.integers(0, 6, len(idx)))
+    rows = np.full((len(idx) + n_sent, weff), 0xFFFFFFFF, np.uint32)
+    rows[: len(idx)] = keys[idx]
+    if sep:
+        pay = np.zeros(len(rows), np.uint32)
+        pay[: len(idx)] = 1 | (np.asarray(left) << 16) | (np.asarray(right) << 24)
+        return tuple(_i32(rows[:, i]) for i in range(weff)), _i32(pay)
+    rows[: len(idx), -1] |= (1 | (np.asarray(left) << 1) | (np.asarray(right) << 4)).astype(
+        np.uint32)
+    return tuple(_i32(rows[:, i]) for i in range(weff)), None
+
+
+def _finalize_case(rng, case, purge):
+    """(group index per row, sentinel rows, ext codes or None, the kept
+    count the case must give or None)."""
+    T = FINALIZE_TILE
+    if case == "none kept":  # sentinels only; with purge also count-1 keys only
+        n = 3 * T + 5
+        return (np.arange(n) if purge else np.zeros(0, np.int64)), (0 if purge else n), None, 0
+    if case == "all kept":  # no purge: distinct keys, no sentinels
+        n = 2 * T + 7
+        return np.arange(n), 0, None, (None if purge else n)
+    if case == "only N-1 kept":  # count-1 keys (purge) or one group (no purge), then a
+        n = 2 * T + 1  # count-2 group ending at the last row, both rows calling left A
+        idx = np.concatenate([np.arange(n - 2), [n - 2, n - 2]]) if purge else np.zeros(n, int)
+        left = np.where(np.arange(n) >= n - 2, 0, 5)
+        return idx, 0, (left, np.full(n, 5)), 1
+    if case == "pairs at tile edges":  # count-2 groups ending on odd rows, then on
+        n = 3 * T  # even rows: kept rows at 2047, 2048, 4095, 4096, ...
+        r = np.arange(n)
+        idx = np.where(r < T + 3, r // 2, (r + 1) // 2)  # and one count-1 group, row 2050
+        groups = np.bincount(idx)
+        return idx, 40, (np.zeros(n, int), np.full(n, 3)), int(
+            (groups >= 2).sum() if purge else len(groups))
+    t, d = {"N = 2048 - 1": (1, -1), "N = 2048 + 1": (1, 1), "N = 3 x 2048 - 1": (3, -1),
+            "N = 3 x 2048 + 1": (3, 1)}[case]
+    n = t * T + d
+    sizes = rng.integers(1, 5, n)
+    idx = np.repeat(np.arange(n), sizes)[:n]
+    return idx, n // 50, None, None
+
+
+@pytest.mark.parametrize("case", ["none kept", "all kept", "only N-1 kept",
+                                  "pairs at tile edges", "N = 2048 - 1", "N = 2048 + 1",
+                                  "N = 3 x 2048 - 1", "N = 3 x 2048 + 1"])
+@pytest.mark.parametrize("purge", [True, False])
+@pytest.mark.parametrize("k", [21, 77])
+def test_finalize_edges(cuda, case, purge, k):
+    """The fused kernel's tile edges: no kept row, every row kept, the only
+    kept row at N - 1, kept rows on both sides of tile edges, and N one off
+    a multiple of the 2048-row tile; packed at k = 21, a separate payload
+    at k = 77."""
+    rng = np.random.default_rng(len(case) * 4 + purge * 2 + k)
+    idx, n_sent, ext, kept = _finalize_case(rng, case, purge)
+    # the tail's sentinels keep N one off the tile multiple
+    if case.startswith("N ="):
+        idx = idx[: len(idx) - n_sent]
+    keys, pay = _group_run(rng, k, idx, k == 77, n_sent, ext)
+    n_kept = _finalize_same(cuda, keys, k, purge, pay)
+    if kept is not None:
+        assert n_kept == kept
 
 
 @pytest.mark.parametrize("n,p_start", [(1, 1.0), (1023, 0.3), (1025, 1.0), (70001, 0.0005),
@@ -928,6 +1015,44 @@ def test_minimizer(cuda, k, B, extra):
         _same((got,), (want,))
     empty = minimizer.minimizer_targets(codes[:0].to(cuda), k, m, 4)
     assert empty.shape == (0, L - k + 1)
+
+
+@pytest.mark.parametrize("k", [21, 55, 99])
+@pytest.mark.parametrize("B,L", [(37, 128), (31, 131), (2, 2049), (3, 4100), (1, 9000)])
+def test_minimizer_tiles(cuda, k, B, L):
+    """Reads across the kernel's tiles of 2048 bases: B not a multiple of
+    a tile's reads (16 at L = 128, 15 at L = 131), and reads past 2048
+    bases, a block each, scanned in 2048-candidate chunks."""
+    from mhm2_proxy_tpu_torch.constants import minimizer_len_for_k
+    from mhm2_proxy_tpu_torch.ops import minimizer
+
+    rng = np.random.default_rng(k + B * 7 + L)
+    m = minimizer_len_for_k(k)
+    codes = torch.from_numpy(rng.integers(0, 5, (B, L), dtype=np.uint8))
+    for S in (3, 64):
+        want = minimizer.minimizer_targets(codes, k, m, S)
+        got = _launched("minimizer", lambda: minimizer.minimizer_targets(codes.to(cuda), k, m, S))
+        _same((got,), (want,))
+
+
+@pytest.mark.parametrize("k", [21, 33, 77, 99])
+@pytest.mark.parametrize("d", [-1, 0, 1])
+def test_minimizer_window_segments(cuda, k, d):
+    """P a multiple of the window w = k - m + 1, and one off it: the van
+    Herk/Gil-Werman segments end at, before and after the last position."""
+    from mhm2_proxy_tpu_torch.constants import minimizer_len_for_k
+    from mhm2_proxy_tpu_torch.ops import minimizer
+
+    rng = np.random.default_rng(k * 3 + d)
+    m = minimizer_len_for_k(k)
+    w = k - m + 1
+    for P in (w + d, 3 * w + d):
+        if P < 1:
+            continue
+        codes = torch.from_numpy(rng.integers(0, 5, (20, k - 1 + P), dtype=np.uint8))
+        want = minimizer.minimizer_targets(codes, k, m, 5)
+        got = _launched("minimizer", lambda: minimizer.minimizer_targets(codes.to(cuda), k, m, 5))
+        _same((got,), (want,))
 
 
 def test_cli_shards_2(cuda, tmp_path):

@@ -60,8 +60,8 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     lens = torch.from_numpy(rng.integers(20, 65, 8).astype(np.int32))
     run = count.block_to_raw_run(codes, qual, lens, 21)
     merged = sort.merge_sorted_lanes(run, run, 2)
-    data, flags = finalize.scan_purge(merged, 21, purge=True)
-    compact.compact_classes(data, flags, 2, (0,))
+    finalize.scan_purge_compact(merged, 21, 2, purge=True)
+    compact.compact_classes(merged, merged[0] & 1, 2, (0,))
     extract.extract_record_lanes(codes, qual, lens, 21)
     scan.group_sums_scan_packed(merged, finalize._keymask(21, 2), 0xFFFF)
     scan.group_sums_scan_lanes(merged, torch.ones(merged[0].shape[0], dtype=torch.bool), 0xFFFF)

@@ -16,7 +16,7 @@ from mhm2_proxy_tpu.oracle.pyref import target_shard
 from mhm2_proxy_tpu_torch.constants import minimizer_len_for_k
 from mhm2_proxy_tpu_torch.ops import bitkmer as bk
 from mhm2_proxy_tpu_torch.ops import count, u64
-from mhm2_proxy_tpu_torch.ops.minimizer import minimizer_targets
+from mhm2_proxy_tpu_torch.ops.minimizer import minimizer_targets, remainder_constants
 from torch_common import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KS = (21, 33, 55, 77, 99)
@@ -109,3 +109,35 @@ def test_read_records_target_equals_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     one = count.minimizer_shard_targets(torch.from_numpy(codes), k, minimizer_len_for_k(k), 1)
     assert one.shape == (6, 96 - k + 1) and not one.any()
+
+
+U32_EDGES = [0, 1, 2, 3, 4095, 4096, 65535, 65536, (1 << 31) - 1, 1 << 31, (1 << 32) - 2,
+             (1 << 32) - 1]
+
+
+def _fastmod(a: int, recip: int, s: int) -> int:
+    """csrc/minimizer.cu's fastmod: the high 64 bits of (M a mod 2^64) s."""
+    return (((recip * a) & ((1 << 64) - 1)) * s) >> 64
+
+
+@pytest.mark.parametrize("shards", [range(1, 2049), range(2049, 4097),
+                                    [46340, 46341, 65521, 65535]])
+def test_remainder_constants_against_python(shards):
+    """The kernel's remainders from remainder_constants: every u32's by
+    Lemire's direct computation, and a u64 hash's by the fold of its
+    halves, equal Python's %, for S = 1..4096 and large S with S^2 < 2^32,
+    over edge and random values."""
+    rng = np.random.default_rng(len(shards))
+    u32 = U32_EDGES + [int(x) for x in rng.integers(0, 1 << 32, 24, dtype=np.uint64)]
+    u64s = [0, (1 << 64) - 1, 1 << 63, (1 << 32) - 1, 1 << 32] + [
+        int(x) for x in rng.integers(0, 1 << 63, 8, dtype=np.int64)] + [
+        int(x) | (1 << 63) for x in rng.integers(0, 1 << 63, 8, dtype=np.int64)]
+    for s in shards:
+        assert s * s < 1 << 32
+        recip, two32 = remainder_constants(s)
+        assert 0 <= recip < 1 << 64 and two32 == (1 << 32) % s
+        assert [_fastmod(a, recip, s) for a in u32 + [s - 1, s, s + 1, 2 * s - 1]] == [
+            a % s for a in u32 + [s - 1, s, s + 1, 2 * s - 1]]
+        for h in u64s:
+            part = _fastmod(h >> 32, recip, s) * two32 + _fastmod(h & 0xFFFFFFFF, recip, s)
+            assert part < 1 << 32 and _fastmod(part, recip, s) == h % s
