@@ -4,6 +4,7 @@
     python3 chip_smoke.py                          # every phase, one GPU
     python3 chip_smoke.py --only callers [DIR]     # phase 2's whole-call rows
     python3 chip_smoke.py --only ladder [DIR]      # phase 5, kernels metered
+    python3 chip_smoke.py --only stitch [DIR]      # phase 5b on the k = 21 round alone
     python3 chip_smoke.py --only kernels [DIR]     # phase 2's extract, finalize, join,
                                                    # scan (+ collapse compact), ssw and
                                                    # minimizer rows
@@ -68,7 +69,13 @@ Phases (any failure raises, and the script exits non-zero):
      with its shape), at least one collapse, one ranged read fold and one
      ranged ctg-rule fold, >= 95% exact-substring bases, and the k = 21
      edge join's shape (trimmed table rows, valid and UU rows, all-ones
-     table rows and queries, the longest equal-key run);
+     table rows and queries, the longest equal-key run), and every round's
+     traversal and stitch lines (each stitch stage's seconds);
+  5b. the stitch on CUDA on phase 5's k = 21 table against the native
+     sequential walker on the same states after the same repair (equal
+     sorted contig lists): states, paths emitted and kept, each stage's
+     seconds, the bytes fetched, the stitch's peak device memory, the
+     walker's seconds;
   6. store-level equality on that community's reads plus contig windows cut
      from its genomes, at k = 33 (k = 77's separate payload runs the forced
      split LSM in phase 2):
@@ -1482,10 +1489,13 @@ def phase_arctic(work):
             f"{r['read_pieces']} ctg-rule {r['ctg_pieces']}, ctg-rule rows "
             f"{r['ctg_rule_rows']}, table rows {r['kmers']}, peak device memory "
             f"{r['peak_bytes'] / 1e9:.2f} GB")
+    for line in open(os.path.join(out, "mhm2_torch.log")):
+        if re.search(r"k=\d+: (traversal ->|stitch \{)", line):
+            log(f"[arctic] {line.strip().split(' ', 2)[-1]}")
     for name, secs in modules.items():
         log(f"[arctic] stage {name}: {secs:.2f} s")
     log(f"[arctic] wall {wall:.2f} s ({k21.seconds:.2f} s of it copying the k=21 table to the "
-        f"host for phase 8's check), launches {counts}")
+        f"host for phases 5b and 8), launches {counts}")
     for name, (calls, ms) in ladder.items():
         log(f"[arctic] kernel {name}: {counts[name]} launches, {calls} C entry calls, "
             f"{ms:.2f} device ms over the ladder (CUDA event pairs around the C entry)")
@@ -1507,7 +1517,83 @@ def phase_arctic(work):
     check(tot > 0 and frac >= 0.95, frac)
     log("[arctic] k=21 edge join: " + ", ".join(
         f"{key} {val}" for key, val in edge_join_shape(k21.tables[0], 21).items()))
-    return fq, gens, counts, out, k21_dig, {name: ms for name, (_c, ms) in ladder.items()}
+    return (fq, gens, counts, out, k21_dig, {name: ms for name, (_c, ms) in ladder.items()},
+            k21.tables[0])
+
+
+def phase_stitch(table, k: int = 21, min_states: int = 3):
+    """Phase 5b: the port's stitch on CUDA on a k = 21 table (a host copy
+    of a FinalTable; the edges built on the card), at the assembler's
+    min_states (its k + 2 contig bound), against the native sequential
+    walker (io/native.py) on the same states after the same repair: equal
+    sorted (seq, depth) lists, the walker's paths rendered by the same
+    canonical_contigs. Logs the states and paths, every stage's seconds,
+    the bytes fetched, the stitch's peak device memory, and the walker's
+    time with the copy of the states it needs."""
+    import numpy as np
+    import torch
+
+    from mhm2_proxy_tpu_torch.dbjg import stitch as ST
+    from mhm2_proxy_tpu_torch.dbjg.traverse import build_edges, fit_table_rows
+    from mhm2_proxy_tpu_torch.io.native import get_stitch_walk
+    from mhm2_proxy_tpu_torch.kcount import FinalTable
+
+    ft = fit_table_rows(FinalTable.from_reference(k, *table, device="cuda"))
+    edges = build_edges(ft.words, ft.count, ft.left, ft.right, ft.n, k)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
+    t0 = time.perf_counter()
+    got = ST.stitch_paths(edges, ft.words, ft.count, k, timings=timings, min_states=min_states)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[stitch] k={k}: {timings['states']} states, {timings['paths']} paths emitted, "
+        f"{timings['paths_kept']} kept (min_states {min_states}); device stitch {wall:.4f} s, "
+        f"stages {timings}; fetched {timings['fetched_bytes']} bytes; peak device memory "
+        f"{peak} bytes ({resident} bytes of table and edges before it); {card_line()}")
+
+    # the walker: the same pack and repair on the card, the states copied out
+    succ, base, cnt = ST._pack_states_device(
+        edges["uu"], edges["r_idx"], edges["r_port"], edges["r_ok"],
+        edges["l_idx"], edges["l_port"], edges["l_ok"], ft.words, ft.count, k)
+    succ, _dropped = ST._repair(succ)
+    t0 = time.perf_counter()
+    succ, base, cnt = succ.cpu().numpy().astype(np.int64), base.cpu().numpy(), cnt.cpu().numpy()
+    fetch_s = time.perf_counter() - t0
+    walk = get_stitch_walk()
+    check(walk is not None, "the native stitch walker (native/libmhm2_native.so) did not load")
+    S = succ.size
+    buf = np.empty(S + (k - 1) * (S + 1), np.uint8)
+    starts, nst, dep = (np.empty(S + 1, np.int64) for _ in range(3))
+    t0 = time.perf_counter()
+    n_paths = walk(succ, base, cnt, k, buf, starts, nst, dep)
+    walk_s = time.perf_counter() - t0
+    check(n_paths >= 0, "the native walker overflowed its buffers")
+    starts, nst, dep = starts[:n_paths], nst[:n_paths], dep[:n_paths]
+    src = np.zeros(n_paths, np.int64)
+    np.cumsum(((k - 1) + nst)[:-1], out=src[1:])
+    keep = nst >= min_states
+    starts, nst, dep, src = starts[keep], nst[keep], dep[keep], src[keep]
+    log(f"[stitch] k={k}: native walker {walk_s:.4f} s ({n_paths} paths, {keep.sum()} kept), "
+        f"after copying the repaired states to the host in {fetch_s:.4f} s "
+        f"({S * 4 + S + cnt.nbytes} bytes as int32 successors, bases and counts); "
+        f"{card_line()}")
+    # the walker's kept paths as canonical_contigs takes them
+    path = np.repeat(np.arange(nst.size), nst)
+    pos = np.arange(path.size) - np.repeat(np.cumsum(nst) - nst, nst)
+    on_card = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()  # noqa: E731
+    want = ST.canonical_contigs(
+        on_card(nst), on_card(path), on_card(pos), on_card(buf[src[path] + (k - 1) + pos]),
+        on_card(np.where(pos == 0, dep[path], 0)), ft.words[on_card(starts >> 1)],
+        on_card((starts & 1) == 1), k)
+    del buf, path, pos, succ, base, cnt
+    check(n_paths == timings["paths"] and len(want) == len(got) == timings["paths_kept"],
+          "the walker and the device stitch emit different path counts")
+    check(sorted(got) == sorted(want), f"k={k}: the device stitch differs from the native walker")
+    log(f"[stitch] k={k}: the device stitch equals the native walker ({len(got)} contigs)")
+    del ft, edges
+    torch.cuda.empty_cache()
 
 
 def edge_join_shape(table, k: int) -> dict:
@@ -1808,16 +1894,18 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no CUDA device", file=sys.stderr)
         return 2
-    # `--only callers|ladder|kernels|sharded [DIR]`: only phase_callers, only
-    # phase 5 (the 27 Mbp ladder, its kernels metered), only phase 2's
+    # `--only callers|ladder|stitch|kernels|sharded [DIR]`: only
+    # phase_callers, only phase 5 (the 27 Mbp ladder, its kernels metered),
+    # only phase 5b (the community's k = 21 round, then the stitch against
+    # the walker on its table), only phase 2's
     # extract, finalize, join, collapse (scan, compact), ssw and minimizer
     # rows, or only phase 8 (the 27 Mbp community with --shards 4, the
     # minimizer metered), on the package of DIR (default this checkout),
     # e.g. a parent tree unpacked beside it
     only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
-    if argv and only not in ("callers", "ladder", "kernels", "sharded"):
-        print("usage: chip_smoke.py [--only callers|ladder|kernels|sharded [PACKAGE_DIR]]",
-              file=sys.stderr)
+    if argv and only not in ("callers", "ladder", "stitch", "kernels", "sharded"):
+        print("usage: chip_smoke.py [--only callers|ladder|stitch|kernels|sharded "
+              "[PACKAGE_DIR]]", file=sys.stderr)
         return 2
     root = os.path.abspath(argv[2]) if len(argv) > 2 else ROOT
     if not os.path.isdir(os.path.join(root, "mhm2_proxy_tpu_torch")):
@@ -1850,6 +1938,15 @@ def main(argv):
         try:
             if only == "ladder":
                 phase_arctic(work)
+            elif only == "stitch":
+                from mhm2_proxy_tpu_torch.kcount import KmerCountStore
+
+                fq, _gens = arctic_community(work)
+                k21 = k21_table_copy(KmerCountStore, lambda table: table.to_numpy())
+                with k21:
+                    wall = run_cli(fq, os.path.join(work, "arctic12_k21"), (21,))[0]
+                log(f"[stitch] the community's k = 21 round through the CLI in {wall:.2f} s")
+                phase_stitch(k21.tables[0])
             else:
                 phase_sharded_arctic(work, *arctic_community(work))
         finally:
@@ -1876,7 +1973,9 @@ def main(argv):
         phase_sharded_devices()
         phase_ci(work)
         phase_real(work)
-        fq, gens, counts, out, k21, ladder_ms = phase_arctic(work)
+        fq, gens, counts, out, k21, ladder_ms, k21_table = phase_arctic(work)
+        phase_stitch(k21_table)
+        del k21_table
         phase_store_equality(fq, gens)
         counts["ssw"] = phase_post_asm(fq, out)["ssw"]
         sharded_counts, ladder_ms["minimizer"] = phase_sharded_arctic(work, fq, gens, out, k21)

@@ -15,8 +15,8 @@ predecessors are marked, one direction of each path is emitted, path ids
 come from an exclusive scan of per-shard emit counts (the reference's
 reduce_prefix, dbjg_traversal.cpp:583-587), and every on-path
 state reads its path and position from a start-of-terminal registry. The
-host receives only the on-path states and the start k-mers and renders
-canonical contigs in bulk.
+contigs are rendered on the device by dbjg/stitch.py's canonical_contigs,
+and the host receives only their bases, depth sums and offsets.
 """
 
 from __future__ import annotations
@@ -216,32 +216,20 @@ def stitch_paths_sharded(table, edges: dict, k: int, stats: dict | None = None):
         stats["stitch_timings"] = dict(states_s=round(t1 - t0, 2))
     if n_paths == 0:
         return []
-    # the host gets the on-path states and the emitted starts only
-    rows = out[on_path].cpu().numpy().astype(np.int64)
-    starts = srt[emit]
+    # the on-path states and the emitted starts, in path rank order, go
+    # through the single-device render
+    path, pos, base, cnt = out[on_path].to(torch.int64).unbind(1)
+    st = srt[emit]
+    rank = st[:, 0].to(torch.int64)
     shard_of = torch.arange(S, device=dev)[:, None].expand(S, 2 * T)
-    s_words = words[shard_of[emit], starts[:, 3].long()]
-    starts = starts.cpu().numpy().astype(np.int64)
-    s_words = s_words.cpu().numpy()
-    del out, on_path, srt, emit
-
-    s_rank, s_plen, s_port = starts[:, 0], starts[:, 1], starts[:, 2]
-    plen = np.zeros(n_paths, np.int64)
-    plen[s_rank] = s_plen
-    clen = k + plen - 1
-    offsets = np.zeros(n_paths + 1, np.int64)
-    np.cumsum(clen, out=offsets[1:])
-    buf = np.zeros(offsets[-1], np.uint8)
-    path, pos = rows[:, 0], rows[:, 1]
-    buf[offsets[path] + (k - 1) + pos] = rows[:, 2]
-    # start k-mers: the oriented k bases
-    from ..ops.bitkmer import codes_from_words
-
-    kmers = codes_from_words(s_words, k)
-    oriented = np.where((s_port == 1)[:, None], kmers, (3 - kmers[:, ::-1]).astype(np.uint8))
-    buf[(offsets[s_rank][:, None] + np.arange(k)[None, :]).reshape(-1)] = oriented.reshape(-1)
-    depth_sum = np.bincount(path, weights=rows[:, 3], minlength=n_paths).astype(np.int64)
-    out = canonical_contigs(buf, offsets, depth_sum, k)
+    heads = torch.empty((n_paths, words.shape[2]), dtype=words.dtype, device=dev)
+    heads[rank] = words[shard_of[emit], st[:, 3].to(torch.int64)]
+    plen = torch.empty(n_paths, dtype=torch.int64, device=dev)
+    plen[rank] = st[:, 1].to(torch.int64)
+    fwd = torch.empty(n_paths, dtype=torch.bool, device=dev)
+    fwd[rank] = st[:, 2] == 1
+    del out, on_path, srt, emit, st
+    result = canonical_contigs(plen, path, pos, base.to(torch.uint8), cnt, heads, fwd, k)
     if stats is not None:
         stats["stitch_timings"]["render_s"] = round(time.perf_counter() - t1, 2)
-    return out
+    return result

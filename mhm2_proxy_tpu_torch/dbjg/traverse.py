@@ -4,8 +4,10 @@ mhm2_proxy_tpu/dbjg/traverse.py).
 1. build_edges (device): one sort-join answers both neighbours of every UU
    k-mer: index, entry port, and edge validity (reference
    dbjg_traversal.cpp:165-335 walks these one RPC hop at a time).
-2. stitch_paths (host): the native walker decomposes the reciprocal UU
-   edge graph into maximal paths and cycles (dbjg/stitch.py).
+2. stitch_paths (device): pointer doubling decomposes the reciprocal UU
+   edge graph into maximal paths and cycles, and the contigs are rendered
+   there too; the host only slices their fetched bases into strings
+   (dbjg/stitch.py).
 
 Contigs come out in canonical orientation with depth = sum of member k-mer
 counts / (len - k + 2) (dbjg_traversal.cpp:542).

@@ -157,6 +157,14 @@ def last_base(words: torch.Tensor, k: int) -> torch.Tensor:
     return (widen(words[..., w]) >> (2 * (15 - fld))) & 3
 
 
+def codes_from_word_tensor(words: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, W) int32 words -> (N, k) uint8 base codes on the words' device
+    (codes_from_words below, for tensors)."""
+    i = torch.arange(k, device=words.device)
+    shift = (2 * (15 - i % 16)).to(torch.int32)
+    return ((words[:, i // 16] >> shift) & 3).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # minimizers: u64 values as int64 bit patterns (ops/u64.py)
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,8 +78,6 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
 
 
 def test_unported_paths_raise():
-    import pytest
-
     from mhm2_proxy_tpu_torch.kcount import KmerCountStore
     from mhm2_proxy_tpu_torch.main import run_pipeline
     from mhm2_proxy_tpu_torch.options import Options
@@ -96,3 +95,30 @@ def test_unported_paths_raise():
     counter = ShardedCounter(21, 2, device="cpu")
     counter.add_reads_block(codes, np.ones((4, 96), bool), np.full(4, 96, np.int32))
     assert int(counter.finalize().n.sum()) == 1
+
+
+# the port's copies of framework-free host modules of the JAX package: the
+# verbatim ones (0 differing lines) and the adapted ones with the number of
+# lines that differ (the --device option and prog name, the citation of the
+# reference's source, the logger's file name)
+COPIED_MODULES = {
+    "io/fastq.py": 0, "io/stream.py": 0, "io/reads.py": 0, "io/native.py": 0,
+    "io/fasta.py": 0, "utils/synth.py": 0,
+    "constants.py": 2, "options.py": 28, "io/gfa.py": 7, "utils/logger.py": 8,
+}
+
+
+@pytest.mark.parametrize("path", sorted(COPIED_MODULES))
+def test_copied_host_modules_do_not_drift(path):
+    """Read as text (nothing of the JAX package is imported): a copy equals
+    the reference byte for byte, or differs in exactly its known lines."""
+    import difflib
+
+    ref = open(os.path.join(ROOT, "mhm2_proxy_tpu", path), "rb").read()
+    port = open(os.path.join(ROOT, "mhm2_proxy_tpu_torch", path), "rb").read()
+    diff = [line for line in difflib.unified_diff(ref.decode().splitlines(),
+                                                  port.decode().splitlines(), lineterm="", n=0)
+            if line[:1] in "+-" and not line.startswith(("+++", "---"))]
+    assert len(diff) == COPIED_MODULES[path], diff
+    if COPIED_MODULES[path] == 0:
+        assert port == ref
