@@ -9,6 +9,7 @@
                                                    # scan (+ collapse compact), ssw and
                                                    # minimizer rows
     python3 chip_smoke.py --only sharded [DIR]     # phase 8 alone, the minimizer metered
+    python3 chip_smoke.py --only hosts [DIR]       # phase 9 alone, the supermer stage metered
 
 (DIR: the checkout whose mhm2_proxy_tpu_torch to run, default this one, so
 that another tree, e.g. a parent commit unpacked beside it, is timed on the
@@ -23,8 +24,9 @@ Phases (any failure raises, and the script exits non-zero):
      bound of each measurement (the larger of its bytes over the HBM rate
      and its integer operations over the card's int32 rate) and, where one
      PyTorch call computes the same function, that call's time; the
-     extract kernel on read blocks at k = 21-77 (also 150 bp rows) and
-     contig windows; the ssw kernel on 65,536 read/window pairs under four
+     extract kernel on read blocks at k = 21-77 (also 150 bp rows),
+     contig windows and the supermer receiver's (524,288, nb) windows at
+     k = 21, 33, 55, 77, 99; the ssw kernel on 65,536 read/window pairs under four
      scoring profiles, one past a signed byte, and at 2 x 150 bp reads
      (Lq 150, Lr 214); the minimizer kernel on 131,072-read blocks at
      k = 21, 33, 55, 77, 99 with 4 shards, a (2048, 2048) contig-window
@@ -42,7 +44,13 @@ Phases (any failure raises, and the script exits non-zero):
      and the sharded store (4 shards, a small bucket cap: spill rounds, a
      contig pass) on CUDA against the CPU at k = 21 and 77: per-shard
      tables, exchange statistics, sharded_lookup's answers, contigs and
-     stitch rounds; and the compact, sort and finalize kernels' main
+     stitch rounds, and the same for HierarchicalCounter over 2 hosts x 2
+     devices with supermers and for the flat counter with supermers; the
+     analog of __graft_entry__.dryrun_multichip(8) on CUDA (2 x 4 with
+     supermers, skewed reads, spill rounds, a contig pass, lookups, the
+     sharded traversal against the single-device assembly, and the 1.1M
+     k-mer poly-A volume phase) against MULTICHIP_r05.json's counts; and
+     the compact, sort and finalize kernels' main
      callers as whole calls (_merge_sorted_sets, _compact_keep, _split_emit
      at real widths, final_from_sorted_packed and final_from_sorted_sep on
      the finalize rows' runs), kernel and torch around it, against the
@@ -55,7 +63,8 @@ Phases (any failure raises, and the script exits non-zero):
      ci/good-synth-postasm.txt and ci/good-synth-postasm-only.txt, and
      ci/check_post_asm.py's structural SAM check; then the CI sample with
      --shards 4: the JAX package's --shards 4 FASTA digest and the sharded
-     path's five kernels launched;
+     path's five kernels launched; then with --hosts 2 --shards 4: the JAX
+     package's digest for those flags and the five kernels launched;
   4. the --arctic-scale community cut to 3 genomes (6.75 Mbp, 8x, 100 bp
      pairs, k = 21 33), checked against the JAX package's FASTA digest,
      the launch counts of its five kernels > 0, and >= 95% of the assembled
@@ -95,10 +104,20 @@ Phases (any failure raises, and the script exits non-zero):
      the minimizer, extract, sort, scan and compact launch counts > 0; the
      union of the k = 21 shard tables equals phase 5's single-device table;
      >= 95% exact-substring bases; and how many printed contigs differ from
-     phase 5's (only cycle break points may).
+     phase 5's (only cycle break points may);
+  9. the full community again with --hosts 2 --shards 4 (2 hosts x 2
+     devices, supermers through the hierarchical two-stage exchange, on the
+     card) on the default ladder: per round the exchange beside phase 8's
+     (records, MiB, k-mers a record), presummed and re-sent rows, spill
+     rounds, counting and traversal walls, the supermer stage's device ms
+     and peaks (build_supermers, expand_supermers) and peak device memory;
+     the sharded path's five launch counts > 0; each k = 21 shard table
+     equals phase 8's shard for shard; final_assembly.fasta is
+     byte-identical to phase 8's; >= 95% exact-substring bases.
 Prints the kernels' JSON summary (launch counts of phase 5, ssw's of phase
-7, minimizer's of phase 8; ladder_ms: phase 5's device ms, minimizer's of
-phase 8, metered the same way), then the card line, then as the last line
+7, minimizer's of phase 8, hosts_launches: phase 9's; ladder_ms: phase 5's
+device ms, minimizer's of phase 8, metered the same way), then the card
+line, then as the last line
 {"ok": true, "device": {...}}. Without CUDA it exits 2, and without the
 mhm2_proxy_tpu_torch package beside it 3, printing no result. Work files go
 to chip_smoke_work/ next to this script (removed at the end).
@@ -106,6 +125,7 @@ to chip_smoke_work/ next to this script (removed at the end).
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -124,6 +144,12 @@ CI_FASTA_SHA256 = "a17c6e42edf61813c7d47128a0efa75f6461930485cc80dfbe31152ce664b
 # devices): not CI_FASTA_SHA256, since the sharded branch keeps every path
 # (no min_ctg_len) and breaks cycles at the least (shard, row) node
 CI_SHARDS4_FASTA_SHA256 = "836b8d88f13b4741e9b8adf5c90457ba10020459711a8fa0707bb4beaba8393f"
+# the JAX package's `-k 21 33 --shards 4 --hosts 2` on the CI sample (the 8
+# virtual CPU devices as a 2 x 4 mesh, 4 of them used as 2 x 2;
+# `python -m mhm2_proxy_tpu -r synth_sample.fastq -k 21 33 --shards 4
+# --hosts 2`): the --shards 4 digest, since the host-major shards are the
+# flat layout's shards and hold the same tables
+CI_HOSTS2_FASTA_SHA256 = "836b8d88f13b4741e9b8adf5c90457ba10020459711a8fa0707bb4beaba8393f"
 ARCTIC3_FASTQ_SHA256 = "491bd9fb910e892ec85dc9dd8d8358aaaddc598794d4b6f1aaa78b08cf43be15"
 ARCTIC3_FASTA_SHA256 = "b9863311bb0099aea359a6dbeb623bce8910e665ca86a2f609f1a4242219a2bb"
 # the full community's FASTQ, computed with the same generator on the CPU
@@ -276,27 +302,11 @@ def asm_metrics(seqs):
 def exact_substring_bases(seqs, gens, K: int = 24):
     """Bases of the contigs that are exact substrings of a genome or its
     reverse complement: each contig's first K-mer is looked up in a sorted
-    index of every K-mer of the genomes (numpy), and the candidates are
-    compared in full."""
+    index of every K-mer of the genomes (numpy, built once for a set of
+    genomes), and the candidates are compared in full."""
     import numpy as np
 
-    from mhm2_proxy_tpu_torch.io.gfa import revcomp_str
-
-    text = "$".join(gens + [revcomp_str(g) for g in gens]).encode()
-    arr = np.frombuffer(text, np.uint8)
-    lut = np.full(256, 4, np.uint8)
-    for i, c in enumerate(b"ACGT"):
-        lut[c] = i
-    codes = lut[arr].astype(np.uint64)
-    n = codes.size - K + 1
-    key = np.zeros(n, np.uint64)
-    bad = np.zeros(n, bool)
-    for j in range(K):
-        key = (key << np.uint64(2)) | (codes[j : j + n] & np.uint64(3))
-        bad |= codes[j : j + n] == 4
-    pos = np.nonzero(~bad)[0]
-    order = np.argsort(key[pos], kind="stable")
-    skey, spos = key[pos][order], pos[order]
+    text, lut, skey, spos = _substring_index(tuple(gens), K)
     match = 0
     for sq in seqs:
         b = sq.encode()
@@ -310,6 +320,31 @@ def exact_substring_bases(seqs, gens, K: int = 24):
         if any(text[p : p + len(b)] == b for p in spos[lo:hi]):
             match += len(b)
     return match
+
+
+@functools.lru_cache(maxsize=1)
+def _substring_index(gens: tuple, K: int):
+    """The genomes and their reverse complements as one text, the base
+    lookup table, and every K-mer's key and position sorted by key."""
+    import numpy as np
+
+    from mhm2_proxy_tpu_torch.io.gfa import revcomp_str
+
+    text = "$".join(list(gens) + [revcomp_str(g) for g in gens]).encode()
+    arr = np.frombuffer(text, np.uint8)
+    lut = np.full(256, 4, np.uint8)
+    for i, c in enumerate(b"ACGT"):
+        lut[c] = i
+    codes = lut[arr].astype(np.uint64)
+    n = codes.size - K + 1
+    key = np.zeros(n, np.uint64)
+    bad = np.zeros(n, bool)
+    for j in range(K):
+        key = (key << np.uint64(2)) | (codes[j : j + n] & np.uint64(3))
+        bad |= codes[j : j + n] == 4
+    pos = np.nonzero(~bad)[0]
+    order = np.argsort(key[pos], kind="stable")
+    return text, lut, key[pos][order], pos[order]
 
 
 def parse_run_log(path):
@@ -497,19 +532,26 @@ def make_recorder(results):
 def phase_extract(record, gen):
     """The extract kernel against its plain version: read blocks (131072,
     128), packed, k = 21 and 33; contig windows (2048, 2048) in the record
-    layout; (131072, 128) at k = 63 and 77 (record); and 150 bp reads
-    unpadded, (131072, 150) k = 21 packed (rows not 16-byte multiples)."""
+    layout; (131072, 128) at k = 63 and 77 (record); 150 bp reads
+    unpadded, (131072, 150) k = 21 packed (rows not 16-byte multiples);
+    and the supermer receiver's windows, (524288, nb) in the record layout
+    at k = 21, 33, 55, 77, 99 (nb = k + 25: 46, 58, 80, 102, 124 bases;
+    lens n + k + 1 with n = 1..24 k-mers, as expand_supermers gives)."""
     import torch
 
     from mhm2_proxy_tpu_torch.ops import extract
 
     dev = "cuda"
+    windows = tuple((k, (1 << 19, k + 25), False) for k in (21, 33, 55, 77, 99))
     for k, (B, L), packed in ((21, (131072, 128), True), (33, (131072, 128), True),
                               (33, (2048, 2048), False), (63, (131072, 128), False),
-                              (77, (131072, 128), False), (21, (131072, 150), True)):
-        codes = torch.randint(0, 5, (B, L), dtype=torch.uint8, device=dev, generator=gen)
+                              (77, (131072, 128), False), (21, (131072, 150), True)) + windows:
+        window = (k, (B, L), packed) in windows
+        codes = torch.randint(0, 4 if window else 5, (B, L), dtype=torch.uint8, device=dev,
+                              generator=gen)
         qual = torch.rand((B, L), device=dev, generator=gen) > 0.05
-        lens = torch.randint(k - 2, L + 1, (B,), dtype=torch.int32, device=dev, generator=gen)
+        lo = k + 2 if window else k - 2
+        lens = torch.randint(lo, L + 1, (B,), dtype=torch.int32, device=dev, generator=gen)
         kern = lambda: extract._extract(codes, qual, lens, k, packed)  # noqa: E731
         plain = lambda: extract._extract_plain(codes, qual, lens, k, packed)  # noqa: E731
         out = kern()
@@ -518,7 +560,8 @@ def phase_extract(record, gen):
         # k-mer and its reverse complement, the canonical compare, the exts
         ops = B * (L - k + 1) * (8 * len(out) + 12)
         record("extract", err, cuda_ms(kern), cuda_ms(plain),
-               f"({B}, {L}) k={k} {'packed' if packed else 'record'}",
+               f"({B}, {L}) k={k} {'packed' if packed else 'record'}"
+               f"{' supermer windows' if window else ''}",
                nbytes(codes, qual, lens, out), ops)
         del out
 
@@ -730,21 +773,33 @@ def phase_minimizer(record, gen):
 
 
 def phase_sharded_devices():
-    """The sharded store (reads with spill rounds, a contig pass) on CUDA
-    equals the same on the CPU at k = 21 and 77: per-shard tables, every
-    exchange statistic, sharded_lookup's answers and the traversal's
-    contigs and stitch rounds."""
+    """The sharded stores (reads with spill rounds, a contig pass) on CUDA
+    equal the same on the CPU at k = 21 and 77: the flat ShardedCounter
+    (raw records, 4 shards), HierarchicalCounter over 2 hosts x 2 devices
+    with supermers, and the flat ShardedCounter with supermers: per-shard
+    tables, every exchange statistic, sharded_lookup's answers and the
+    traversal's contigs and stitch rounds; then the analog of
+    dryrun_multichip(8) on CUDA against MULTICHIP_r05.json's counts."""
     import numpy as np
     import torch
 
     from mhm2_proxy_tpu_torch.dbjg import traverse_debruijn_graph_sharded
-    from mhm2_proxy_tpu_torch.parallel import ShardedCounter, sharded_lookup
+    from mhm2_proxy_tpu_torch.parallel import HierarchicalCounter, ShardedCounter, sharded_lookup
 
     rng = np.random.default_rng(21)
     genome = rng.integers(0, 4, 200_000).astype(np.uint8)
     S, cap = 4, 4000  # below a bucket's share of a block: spill rounds
+    # the supermer stores' caps (in k-mers, an eighth of them in records)
+    # give 2-5 spill rounds: ~5 k-mers a record at k = 21, ~14 at k = 77
+    sup_cap = {21: 16000, 77: 2000}
+    stores = {
+        "flat raw": lambda k, dev: ShardedCounter(k, S, bucket_cap=cap, device=dev),
+        "2x2 supermers": lambda k, dev: HierarchicalCounter(k, (2, 2), bucket_cap=sup_cap[k],
+                                                            device=dev),
+        "flat supermers": lambda k, dev: ShardedCounter(k, S, bucket_cap=sup_cap[k], device=dev,
+                                                        use_supermers=True),
+    }
     for k in (21, 77):
-        t0 = time.perf_counter()
         blocks = []
         for _ in range(2):
             B, L = 4096, 128
@@ -760,33 +815,125 @@ def phase_sharded_devices():
         c_lens = rng.integers(k + 2, seg + 1, n_ctg).astype(np.int32)
         c_codes[np.arange(seg)[None, :] >= c_lens[:, None]] = 4
         c_deps = rng.integers(1, 50, n_ctg).astype(np.int32)
-        got = {}
-        for dev in ("cpu", "cuda"):
-            st = ShardedCounter(k, S, bucket_cap=cap, device=dev)
-            for blk in blocks:
-                st.add_reads_block(*blk)
-            st.add_ctgs_block(c_codes, c_lens, c_deps)
-            table = st.finalize()
-            rows = [tuple(x.cpu().numpy().copy() for x in (table.words[s, :n], table.count[s, :n],
-                                                          table.left[s, :n], table.right[s, :n]))
-                    for s, n in enumerate(table.n.tolist())]
-            Q = int(table.n.max())
-            qv = torch.roll(torch.arange(Q, device=dev)[None, :] < table.n[:, None], 1, 0)
-            look = sharded_lookup(table, torch.roll(table.words[:, :Q], 1, 0), qv)
-            tstats = {}
-            contigs = sorted(traverse_debruijn_graph_sharded(table, k, stats=tstats))
-            got[dev] = (rows, (st.stat_kmers, st.stat_records, st.stat_collapsed, st.spilled,
-                               st.spill_rounds), [x.cpu() for x in look], contigs,
-                        tstats["stitch_rounds"])
-        (rc, sc, lc, cc, tc), (rg, sg, lg, cg, tg) = got["cpu"], got["cuda"]
-        same_rows = all(all(np.array_equal(a, b) for a, b in zip(x, y)) for x, y in zip(rc, rg))
-        same = (same_rows and sc == sg and all(torch.equal(a, b) for a, b in zip(lc, lg))
-                and cc == cg and tc == tg)
-        log(f"[sharded-devices] k={k}: {sum(len(r[0]) for r in rc)} table rows over {S} shards, "
-            f"stats (kmers, records, presummed, re-sent, spill rounds) {sc}, {len(cc)} contigs, "
-            f"stitch rounds {tc}, CUDA == CPU: {same} ({time.perf_counter() - t0:.1f} s)")
-        check(same and sc[4] > 0 and len(cc) > 0 and bool(lc[0].any()),
-              f"k={k}: the sharded store on CUDA differs from the CPU (or no spill round)")
+        for name, make in stores.items():
+            t0 = time.perf_counter()
+            got = {}
+            for dev in ("cpu", "cuda"):
+                st = make(k, dev)
+                for blk in blocks:
+                    st.add_reads_block(*blk)
+                st.add_ctgs_block(c_codes, c_lens, c_deps)
+                table = st.finalize()
+                rows = [tuple(x.cpu().numpy().copy() for x in (
+                    table.words[s, :n], table.count[s, :n], table.left[s, :n],
+                    table.right[s, :n])) for s, n in enumerate(table.n.tolist())]
+                Q = int(table.n.max())
+                qv = torch.roll(torch.arange(Q, device=dev)[None, :] < table.n[:, None], 1, 0)
+                look = sharded_lookup(table, torch.roll(table.words[:, :Q], 1, 0), qv)
+                tstats = {}
+                contigs = sorted(traverse_debruijn_graph_sharded(table, k, stats=tstats))
+                got[dev] = (rows, (st.stat_kmers, st.stat_records, st.stat_collapsed, st.spilled,
+                                   st.spill_rounds, st.stat_bytes, table.bound_rows),
+                            [x.cpu() for x in look], contigs, tstats["stitch_rounds"])
+            (rc, sc, lc, cc, tc), (rg, sg, lg, cg, tg) = got["cpu"], got["cuda"]
+            same_rows = all(all(np.array_equal(a, b) for a, b in zip(x, y))
+                            for x, y in zip(rc, rg))
+            same = (same_rows and sc == sg and all(torch.equal(a, b) for a, b in zip(lc, lg))
+                    and cc == cg and tc == tg)
+            log(f"[sharded-devices] k={k} {name}: {sum(len(r[0]) for r in rc)} table rows over "
+                f"{S} shards, stats (kmers, records, presummed, re-sent, spill rounds, bytes, "
+                f"bound rows) {sc}, {len(cc)} contigs, stitch rounds {tc}, CUDA == CPU: {same} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            check(same and sc[4] > 0 and len(cc) > 0 and bool(lc[0].any()),
+                  f"k={k} {name}: the sharded store on CUDA differs from the CPU (or no spill "
+                  f"round)")
+    t0 = time.perf_counter()
+    got = dryrun_multichip("cuda")
+    log(f"[sharded-devices] dryrun_multichip analog on CUDA: {got} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(got == MULTICHIP_R05, f"dryrun_multichip analog: {got} != MULTICHIP_r05.json's "
+          f"{MULTICHIP_R05}")
+
+
+# The counts of MULTICHIP_r05.json: __graft_entry__.dryrun_multichip(8), the
+# JAX package's hierarchical exchange over a 2 x 4 mesh of virtual CPU
+# devices (the JAX package on the CPU still prints them); exchange tuples
+# are (records, k-mers, presummed, re-sent, spill rounds)
+MULTICHIP_R05 = dict(kmers=2555, contigs=15, exchange=(4579, 22560, 1636, 1904, 2),
+                     volume_exchange=(42166, 1100704, 166734, 35372, 2),
+                     shard_rows=[323, 383, 380, 348, 371, 387, 417, 368])
+
+
+def dryrun_multichip(device="cuda"):
+    """The analog of __graft_entry__.dryrun_multichip(8) on the port, on one
+    device: HierarchicalCounter over 2 hosts x 4 devices with supermers,
+    skewed reads (half on one 600 bp hotspot) through a 640-k-mer bucket
+    cap (>= 2 spill rounds), a contig pass, lookups of every shard's own
+    k-mers, and the sharded traversal against the single-device assembly;
+    then the volume phase: 1.1M k-mers, 30% poly-A reads, cap 4096. Returns
+    the counts that MULTICHIP_R05 pins."""
+    import numpy as np
+    import torch
+
+    from mhm2_proxy_tpu_torch.dbjg import traverse_debruijn_graph, traverse_debruijn_graph_sharded
+    from mhm2_proxy_tpu_torch.kcount import KmerCountStore
+    from mhm2_proxy_tpu_torch.ops.bitkmer import ascii_to_codes
+    from mhm2_proxy_tpu_torch.parallel import HierarchicalCounter, sharded_lookup
+
+    n_dev, layout, k, L = 8, (2, 4), 21, 64
+    n_reads = max(512, 64 * n_dev)
+    rng = np.random.default_rng(1)
+    genome = rng.integers(0, 4, 3000, dtype=np.uint8)
+    n_hot = n_reads // 4
+    starts = np.concatenate([rng.integers(0, 3000 - L, n_reads // 2 - n_hot),
+                             rng.integers(1000, 1600 - L, n_hot)])
+    half = np.stack([genome[s : s + L] for s in starts])
+    codes = np.concatenate([half, half])
+    qual_ok = np.ones_like(codes, bool)
+    lens = np.full((n_reads,), L, np.int32)
+    counter = HierarchicalCounter(k, layout, bucket_cap=640, device=device, use_supermers=True)
+    counter.add_reads_block(codes, qual_ok, lens)
+    gstr = "".join("ACGT"[c] for c in genome)
+    ctgs = [(gstr[900:1700], 7), (gstr[200:500], 3)]
+    ccodes = np.full((n_dev, 1024), 4, np.uint8)
+    clens = np.zeros((n_dev,), np.int32)
+    cdeps = np.zeros((n_dev,), np.int32)
+    for i, (cs, d) in enumerate(ctgs):
+        ccodes[i, : len(cs)] = ascii_to_codes(cs.encode())
+        clens[i], cdeps[i] = len(cs), d
+    counter.add_ctgs_block(ccodes, clens, cdeps)
+    table = counter.finalize()
+    Q = 32
+    qw = table.words[:, :Q, :]
+    qv = (torch.arange(Q, device=qw.device)[None, :] < table.n[:, None]) & ~(qw == -1).all(-1)
+    found = sharded_lookup(table, qw, qv)[0]
+    check(bool(found[qv].all()), "own k-mers not found through the sharded lookup")
+    got = traverse_debruijn_graph_sharded(table, k)
+    store = KmerCountStore(k, device=device)
+    store.add_reads_block(codes, qual_ok, lens)
+    store.add_ctgs_block(ccodes, clens, cdeps)
+    exp = traverse_debruijn_graph(store.finalize(), k)
+    norm = lambda cs: sorted((sq, round(d, 9)) for sq, d in cs)  # noqa: E731
+    check(norm(got) == norm(exp), f"sharded contigs != single-device ({len(got)} vs {len(exp)})")
+    check(counter.spill_rounds >= 2 and counter.dropped == 0, counter.describe_exchange())
+    # the volume phase: the poly-A reads all route to one shard
+    Lv = 128
+    Bv = -(-(1_100_000 // (Lv - k - 1)) // n_dev) * n_dev
+    starts_v = rng.integers(0, 3000 - Lv, Bv)
+    codes_v = np.stack([genome[s : s + Lv] for s in starts_v])
+    n_polya = (3 * Bv // 10 // n_dev) * n_dev
+    codes_v[:n_polya] = 0
+    codes_v = codes_v.reshape(n_dev, -1, Lv).transpose(1, 0, 2).reshape(-1, Lv)
+    counter_v = HierarchicalCounter(k, layout, bucket_cap=4096, device=device, use_supermers=True)
+    counter_v.add_reads_block(codes_v, np.ones_like(codes_v, bool), np.full((Bv,), Lv, np.int32))
+    shard_n = counter_v.finalize().n.tolist()
+    check(counter_v.spill_rounds >= 2 and counter_v.dropped == 0, counter_v.describe_exchange())
+    check(counter_v.stat_collapsed >= n_polya * (Lv - k - 1) // 2, counter_v.stat_collapsed)
+    check(0 < sum(shard_n) <= 3001, shard_n)
+    ex = lambda c: (c.stat_records, c.stat_kmers, c.stat_collapsed, c.spilled,  # noqa: E731
+                    c.spill_rounds)
+    return dict(kmers=int(table.n.sum()), contigs=len(got), exchange=ex(counter),
+                volume_exchange=ex(counter_v), shard_rows=shard_n)
 
 
 def phase_join_separate(record, gen):
@@ -1422,6 +1569,17 @@ def phase_ci(work):
         f"single-device digest: {fdig == CI_FASTA_SHA256})")
     check(fdig == CI_SHARDS4_FASTA_SHA256, "--shards 4 FASTA differs from the JAX package's")
     check(all(counts[k] > 0 for k in SHARDED_KERNELS), f"a sharded-path kernel never ran: {counts}")
+    # the hierarchical exchange with supermers: 2 hosts x 2 devices
+    outh = os.path.join(work, "ci_run_hosts2")
+    wall, counts, asm = run_cli(fq, outh, (21, 33), ("--hosts", "2", "--shards", "4"))
+    fdig = sha256(os.path.join(outh, "final_assembly.fasta"))
+    ex = {k: asm.round_stats[k]["records"] for k in (21, 33)}
+    log(f"[ci] --hosts 2 --shards 4: wall {wall:.2f} s, launches {counts}, records {ex}, "
+        f"final_assembly.fasta sha256 {fdig} (the JAX package's --hosts 2 --shards 4: "
+        f"{fdig == CI_HOSTS2_FASTA_SHA256})")
+    check(fdig == CI_HOSTS2_FASTA_SHA256, "--hosts 2 --shards 4 FASTA differs from the JAX "
+          "package's")
+    check(all(counts[k] > 0 for k in SHARDED_KERNELS), f"a sharded-path kernel never ran: {counts}")
 
 
 def phase_real(work):
@@ -1659,24 +1817,23 @@ class k21_table_copy:
 
 
 def sharded_to_host(table):
-    """The live rows of every shard, concatenated on the host: (words uint32,
-    count, left, right, n) as FinalTable.to_numpy gives them."""
+    """Each shard's live rows on the host: a list of (words uint32, count,
+    left, right, n) as FinalTable.to_numpy gives them."""
     import numpy as np
-    import torch
 
-    live = list(enumerate(table.n.tolist()))
-    cat = lambda x: torch.cat([x[s, :n] for s, n in live]).cpu().numpy()  # noqa: E731
-    words = cat(table.words).view(np.uint32)
-    return words, cat(table.count), cat(table.left), cat(table.right), words.shape[0]
+    return [(table.words[s, :n].cpu().numpy().view(np.uint32), table.count[s, :n].cpu().numpy(),
+             table.left[s, :n].cpu().numpy(), table.right[s, :n].cpu().numpy(), n)
+            for s, n in enumerate(table.n.tolist())]
 
 
-def sharded_union_digest(words, count, left, right, n):
+def sharded_union_digest(shards):
     """table_digest of the union of a sharded table's shards: the rows in one
     key order (a k-mer lives on one shard only)."""
     import numpy as np
 
+    words, count, left, right = (np.concatenate([sh[i] for sh in shards]) for i in range(4))
     perm = np.lexsort(tuple(words[:, i] for i in range(words.shape[1] - 1, -1, -1)))
-    return table_digest(words[perm], count[perm], left[perm], right[perm], n)
+    return table_digest(words[perm], count[perm], left[perm], right[perm], words.shape[0])
 
 
 def phase_sharded_arctic(work, fq, gens, single_out=None, single_k21=None):
@@ -1722,9 +1879,11 @@ def phase_sharded_arctic(work, fq, gens, single_out=None, single_k21=None):
     check(sorted(rs) == [21, 33, 55, 77, 99], f"rounds run: {sorted(rs)}")
     check(all(counts[k] > 0 for k in SHARDED_KERNELS), f"a sharded-path kernel never ran: {counts}")
     t0 = time.perf_counter()
-    union = [sharded_union_digest(*t) for t in k21.tables]
+    union = [sharded_union_digest(t) for t in k21.tables]
+    shards = [table_digest(*sh) for sh in k21.tables[0]]
     log(f"[sharded] k=21: union of the shard tables {union[0][0]} rows, digest "
-        f"{union[0][1][:16]} (hashed in {time.perf_counter() - t0:.1f} s after the run)")
+        f"{union[0][1][:16]}; shards {[(n, d[:16]) for n, d in shards]} (hashed in "
+        f"{time.perf_counter() - t0:.1f} s after the run)")
     if single_k21 is not None:
         log(f"[sharded] k=21: single-device {single_k21[0]} rows, digest {single_k21[1][:16]}")
         check(union == [single_k21], "k=21: the union of the shard tables differs from the "
@@ -1740,7 +1899,124 @@ def phase_sharded_arctic(work, fq, gens, single_out=None, single_k21=None):
         log(f"[sharded] {differ} of {len(seqs)} printed contigs are not in phase 5's FASTA "
             f"({len(single)} contigs)")
     check(tot > 0 and frac >= 0.95, frac)
-    return counts, m_ms
+    return counts, m_ms, dict(out=out, rounds=rs, k21_shards=shards, wall=wall)
+
+
+class supermer_meter:
+    """Within the block, every build_supermers (the sender's records) and
+    expand_supermers (the receiver's windows) call of parallel/sharded.py
+    runs between a CUDA event pair, with the device's peak memory reset
+    before it and read after it. Those resets make the CLI's own peak for
+    the round (round_stats' peak_bytes, the log's "peak device memory")
+    the peak since the last stage only. The peak read before each reset is
+    kept, so the round's peak is the largest of those, the stages' peaks
+    and that end-of-round read; this holds because the assembler resets
+    the peak at the start of every round, so no read spans two rounds.
+    totals() synchronizes and gives, per k and stage, (calls, device ms,
+    peak bytes)."""
+
+    STAGES = ("build_supermers", "expand_supermers")
+
+    def __enter__(self):
+        import torch
+
+        from mhm2_proxy_tpu_torch.parallel import sharded
+
+        self.mod, self.orig, self.calls, self.before = sharded, {}, {}, {}
+        for name in self.STAGES:
+            fn = self.orig[name] = getattr(sharded, name)
+
+            def call(*args, _fn=fn, _name=name, **kw):
+                k = args[3] if _name == "build_supermers" else args[1]
+                self.before[k] = max(self.before.get(k, 0), torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = _fn(*args, **kw)
+                ev[1].record()
+                self.calls.setdefault((k, _name), []).append(
+                    (ev, torch.cuda.max_memory_allocated()))
+                return out
+
+            setattr(sharded, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+    def totals(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return {key: (len(c), sum(a.elapsed_time(b) for (a, b), _ in c), max(p for _, p in c))
+                for key, c in self.calls.items()}
+
+
+def phase_hosts_arctic(work, fq, gens, sharded=None):
+    """Phase 9: the full community through the CLI with --hosts 2 --shards 4
+    on the default ladder (2 hosts x 2 devices, supermers through the
+    two-stage exchange, on the card): each round's exchange beside phase
+    8's at the same k (records, MiB, k-mers a record), presummed and
+    re-sent rows, spill rounds, counting and traversal walls, the supermer
+    stage's device ms and peaks, and the round's peak memory; the sharded
+    path's launch counts; >= 95% exact-substring bases; and, given phase
+    8's run (sharded), each k = 21 shard table equals phase 8's shard for
+    shard and final_assembly.fasta is byte-identical to phase 8's."""
+    from mhm2_proxy_tpu_torch.parallel import ShardedCounter
+
+    out = os.path.join(work, "arctic12_hosts2")
+    k21 = k21_table_copy(ShardedCounter, sharded_to_host)
+    with k21, supermer_meter() as meter:
+        wall, counts, asm = run_cli(fq, out, None, ("--hosts", "2", "--shards", "4"))
+    stages = meter.totals()
+    pat = re.compile(r"k=\d+: (counted|exchange|traversal ->|sharded stitch|sharded count)")
+    for line in open(os.path.join(out, "mhm2_torch.log")):
+        if pat.search(line):
+            log(f"[hosts] {line.strip().split(' ', 2)[-1]}")
+    rs = asm.round_stats
+    flat = sharded["rounds"] if sharded else {}
+    mib = lambda r: r["exchange_bytes"] / 2**20  # noqa: E731
+    kpr = lambda r: r["exchanged_kmers"] / max(r["records"], 1)  # noqa: E731
+    for k in sorted(rs):
+        r, f = rs[k], flat.get(k)
+        sr = r["stitch_rounds"]
+        st = {name: stages.get((k, name), (0, 0.0, 0)) for name in supermer_meter.STAGES}
+        peak = max([r["peak_bytes"], meter.before.get(k, 0)] + [p for _c, _ms, p in st.values()])
+        beside = (f" (phase 8: {f['records']} records, {mib(f):.1f} MiB, {kpr(f):.2f} k-mers a "
+                  f"record, counting {f['count_s']:.2f} s, traversal {f['traverse_s']:.2f} s, "
+                  f"peak {f['peak_bytes'] / 1e9:.2f} GB)") if f else ""
+        log(f"[hosts] k={k}: {r['records']} records, {mib(r):.1f} MiB, {kpr(r):.2f} k-mers a "
+            f"record, presummed {r['presummed']}, re-sent {r['resent']}, spill rounds "
+            f"{r['spill_rounds']}; counting {r['count_s']:.2f} s, traversal "
+            f"{r['traverse_s']:.2f} s, stitch rounds {sr['doubling']}+{sr['cycle_min']}+"
+            f"{sr['post_cut']} (bound {sr['static_bound']}); supermer stage: "
+            + ", ".join(f"{name} {c} calls {ms:.2f} device ms peak {p / 1e9:.2f} GB"
+                        for name, (c, ms, p) in st.items())
+            + f"; table rows {r['kmers']}, contigs {r['contigs']}, peak device memory "
+            f"{peak / 1e9:.2f} GB{beside}")
+    w8 = f" (phase 8: {sharded['wall']:.2f} s)" if sharded else ""
+    log(f"[hosts] wall {wall:.2f} s{w8} ({k21.seconds:.2f} s of it copying the k=21 table to "
+        f"the host), launches {counts}")
+    check(sorted(rs) == [21, 33, 55, 77, 99], f"rounds run: {sorted(rs)}")
+    check(all(counts[k] > 0 for k in SHARDED_KERNELS), f"a sharded-path kernel never ran: {counts}")
+    check(all(rs[k]["records"] < rs[k]["exchanged_kmers"] for k in rs), "no supermer packing")
+    shards = [table_digest(*sh) for sh in k21.tables[0]]
+    log(f"[hosts] k=21: shards {[(n, d[:16]) for n, d in shards]}")
+    if sharded:
+        check(shards == sharded["k21_shards"], "k=21: a shard table differs from phase 8's")
+        same = sha256(os.path.join(out, "final_assembly.fasta")) == sha256(
+            os.path.join(sharded["out"], "final_assembly.fasta"))
+        log(f"[hosts] k=21 shard tables == phase 8's: True; final_assembly.fasta == phase 8's: "
+            f"{same}")
+        check(same, "final_assembly.fasta differs from phase 8's")
+    seqs = read_fasta_seqs(os.path.join(out, "final_assembly.fasta"))
+    tot = sum(map(len, seqs))
+    match = exact_substring_bases(seqs, gens)
+    frac = match / max(tot, 1)
+    log(f"[hosts] {asm_metrics(seqs)}; exact-substring bases {match}/{tot} = {frac:.4f}")
+    check(tot > 0 and frac >= 0.95, frac)
+    return counts
 
 
 def phase_post_asm(fq, out):
@@ -1899,12 +2175,14 @@ def main(argv):
     # only phase 5b (the community's k = 21 round, then the stitch against
     # the walker on its table), only phase 2's
     # extract, finalize, join, collapse (scan, compact), ssw and minimizer
-    # rows, or only phase 8 (the 27 Mbp community with --shards 4, the
-    # minimizer metered), on the package of DIR (default this checkout),
+    # rows, only phase 8 (the 27 Mbp community with --shards 4, the
+    # minimizer metered), or only phase 9 (the same with --hosts 2 --shards
+    # 4, the supermer stage metered), on the package of DIR (default this
+    # checkout),
     # e.g. a parent tree unpacked beside it
     only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
-    if argv and only not in ("callers", "ladder", "stitch", "kernels", "sharded"):
-        print("usage: chip_smoke.py [--only callers|ladder|stitch|kernels|sharded "
+    if argv and only not in ("callers", "ladder", "stitch", "kernels", "sharded", "hosts"):
+        print("usage: chip_smoke.py [--only callers|ladder|stitch|kernels|sharded|hosts "
               "[PACKAGE_DIR]]", file=sys.stderr)
         return 2
     root = os.path.abspath(argv[2]) if len(argv) > 2 else ROOT
@@ -1947,8 +2225,10 @@ def main(argv):
                     wall = run_cli(fq, os.path.join(work, "arctic12_k21"), (21,))[0]
                 log(f"[stitch] the community's k = 21 round through the CLI in {wall:.2f} s")
                 phase_stitch(k21.tables[0])
-            else:
+            elif only == "sharded":
                 phase_sharded_arctic(work, *arctic_community(work))
+            else:
+                phase_hosts_arctic(work, *arctic_community(work))
         finally:
             shutil.rmtree(work, ignore_errors=True)
         return 0
@@ -1978,8 +2258,10 @@ def main(argv):
         del k21_table
         phase_store_equality(fq, gens)
         counts["ssw"] = phase_post_asm(fq, out)["ssw"]
-        sharded_counts, ladder_ms["minimizer"] = phase_sharded_arctic(work, fq, gens, out, k21)
+        sharded_counts, ladder_ms["minimizer"], sharded = phase_sharded_arctic(
+            work, fq, gens, out, k21)
         counts["minimizer"] = sharded_counts["minimizer"]
+        hosts_counts = phase_hosts_arctic(work, fq, gens, sharded)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = []
@@ -1989,7 +2271,8 @@ def main(argv):
                             launches=counts[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
-                            shape=r["shape"], ladder_ms=ladder_ms.get(name)))
+                            shape=r["shape"], ladder_ms=ladder_ms.get(name),
+                            hosts_launches=hosts_counts[name]))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": summary}))
     log(card_line())

@@ -9,9 +9,10 @@ replaces the pair merge and rounds whose contigs-<k>.fasta checkpoint
 exists are skipped, their contigs reloaded; --contigs/--prev-kmer-len
 resume after an external contig checkpoint; --post-asm-only aligns the
 reads to the final_assembly.fasta already in the output directory.
---shards S counts and traverses over S shards on the one device; the
-multi-host layout (--hosts > 1) is not ported yet and stops with
-NotImplementedError naming its ROADMAP item.
+--shards S counts and traverses over S shards on the one device; with
+--hosts H > 1 as well, the S shards form H hosts of S / H devices and the
+k-mers travel as supermers through the hierarchical two-stage exchange
+(within each host, then across hosts), all on the one device.
 """
 
 from __future__ import annotations
@@ -31,9 +32,6 @@ from .utils.memlog import MemoryTracker
 
 
 def _check_supported(opts: Options) -> None:
-    if opts.hosts > 1:
-        raise NotImplementedError(
-            "the multi-host layout (--hosts) is not ported yet: ROADMAP queue 1 item 12")
     if opts.shards < 0:
         raise ValueError(f"--shards must be >= 0, got {opts.shards}")
 
@@ -93,6 +91,7 @@ def run_pipeline(opts: Options) -> Assembler:
         dump_kmers=opts.dump_kmers,
         device=opts.device,
         n_shards=opts.shards,
+        n_hosts=opts.hosts,
         bucket_cap=opts.bucket_cap or None,
     )
     asm = Assembler(cfg)

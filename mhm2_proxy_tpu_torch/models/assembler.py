@@ -5,7 +5,9 @@ FASTQ ingest -> paired merge -> per-k rounds of (k-mer counting [+ contig
 k-mers from the previous round] -> de Bruijn traversal) -> final contigs.
 The per-round flow mirrors contigging<MAX_K> (contigging.cpp:93-158) and
 analyze_kmers (kcount.cpp:140-157). n_shards > 0 counts and traverses over
-that many shards (parallel/sharded.py), all on the run's one device.
+that many shards (parallel/sharded.py), all on the run's one device; with
+n_hosts > 1 the shards form (n_hosts, n_shards / n_hosts) and count through
+the hierarchical exchange (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -62,6 +64,10 @@ class AssemblerConfig:
     n_shards: int = 0
     # per-destination exchange bucket rows of the sharded counter (None: auto)
     bucket_cap: int | None = None
+    # >1 lays the n_shards shards out as (n_hosts, n_shards / n_hosts) and
+    # counts through the hierarchical two-stage exchange with supermers
+    # (parallel/multihost.py)
+    n_hosts: int = 0
 
 
 @dataclasses.dataclass
@@ -93,7 +99,7 @@ class Assembler:
         C++ parser when available. With validate_pairs, mate headers are
         normalized and checked block-vectorized (get_fq_name,
         fastq.cpp:73-122) and a mis-paired input dies loudly. Multi-process
-        ingest by byte range is ROADMAP queue 1 item 12.
+        ingest by byte range is ROADMAP queue 1 item 12d.
         """
         from ..io.fastq import check_pair_block
         from ..io.stream import stream_fastq_blocks
@@ -240,6 +246,15 @@ class Assembler:
     def _make_store(self, k: int):
         cfg = self.cfg
         if cfg.n_shards > 0:
+            if cfg.n_hosts > 1:
+                from ..parallel import HierarchicalCounter
+
+                if cfg.n_shards % cfg.n_hosts:
+                    raise ValueError(f"{cfg.n_shards} shards do not divide over "
+                                     f"{cfg.n_hosts} hosts")
+                return HierarchicalCounter(k, (cfg.n_hosts, cfg.n_shards // cfg.n_hosts),
+                                           dmin_thres=cfg.dmin_thres, bucket_cap=cfg.bucket_cap,
+                                           device=self.device)
             from ..parallel import ShardedCounter
 
             return ShardedCounter(k, cfg.n_shards, dmin_thres=cfg.dmin_thres,

@@ -40,7 +40,7 @@ def default_block_reads(device) -> int:
     return 65536 if torch.device(device).type == "cuda" else 2048
 
 
-def build_contig_index(contigs: list[str], k: int = 31, device="cpu"):
+def build_contig_index(contigs: list[str], k: int = 31, device="cuda"):
     """Sorted (canonical k-mer -> contig id, offset, orientation) rows over
     every contig k-mer, plus the concatenated contig codes and their
     starts and lengths for the window gather. Tensors on `device`; None
@@ -79,7 +79,7 @@ def align_reads_to_contigs(
     codes: np.ndarray, lens: np.ndarray, contigs: list[str],
     index=None, k: int = 31,
     match=1, mismatch=1, gap_open=1, gap_extend=1,
-    cigars: bool = False, n_seeds: int = 5, timings: dict | None = None,
+    cigars: bool = False, n_seeds: int = 5, timings: dict | None = None, device="cuda",
 ):
     """Anchor and align a block of reads against contigs (the reference's
     multi-seed vote: n_seeds k-mer positions per read looked up in one
@@ -89,12 +89,13 @@ def align_reads_to_contigs(
     Returns numpy arrays per read: cid (-1 unanchored), score, identity,
     begin/end spans, rev, win_lo (contig position = win_lo + r_begin), the
     oriented codes, and with cigars=True the CIGARs and NM counts. The
-    index's device runs the work (the CPU when the index is built here).
+    index's device runs the work; an index built here is built on
+    `device`.
     timings, when given, accumulates the seconds of the seeding, windows
     and alignment ("align_s") and of the CIGAR path (sw_cigar_batch's
     "tb_dp_s", "tb_walk_s", "cigar_render_s")."""
     if index is None:
-        index = build_contig_index(contigs, k)
+        index = build_contig_index(contigs, k, device=device)
     if index is None:
         B = codes.shape[0]
         return dict(cid=np.full(B, -1, np.int32), score=np.zeros(B, np.int32),

@@ -115,8 +115,7 @@ def parse_args(argv=None) -> Options:
                         "all on the run's one device")
     p.add_argument("--hosts", type=int, default=0,
                    help=">1: arrange shards as a (hosts, shards/hosts) dcn x ici "
-                        "mesh with node-aware hierarchical exchange (not ported "
-                        "yet: raises)")
+                        "mesh with node-aware hierarchical exchange")
     p.add_argument("--gfa", action="store_true", help="write final_assembly.gfa2")
     p.add_argument("--profile", action="store_true",
                    help="capture a profiler trace of the first round")

@@ -3,7 +3,9 @@
 merged-reads checkpoint) and --profile, held against the JAX package's
 run_pipeline and against an uninterrupted run (byte-identical files)."""
 
+import logging
 import os
+import re
 
 import numpy as np
 import pytest
@@ -144,17 +146,14 @@ def test_profile_writes_a_trace(tmp_path):
     assert os.path.exists(f"{out}/final_assembly.fasta")
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["--hosts", "2"]])
-def test_sharded_flags_raise(tmp_path, flag):
-    """--hosts 2 (the multi-host layout) still raises, naming its ROADMAP
-    item; --shards 2 runs, both shards on the one device, and writes the
-    JAX package's --shards 2 FASTA and k-mer dump."""
-    if flag[0] == "--hosts":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-            run(["-r", str(tmp_path / "x.fastq"), "-o", str(tmp_path / "o")] + flag)
-        return
+@pytest.mark.parametrize("flag", [["--shards", "2"], ["--hosts", "2", "--shards", "4"]])
+def test_sharded_flags_raise(tmp_path, flag, caplog):
+    """--shards 2 (both shards on the one device) and --hosts 2 --shards 4
+    (2 hosts x 2 devices, the two-stage exchange with supermers) run and
+    write the JAX package's FASTA and k-mer dump for the same flags."""
     import gzip
 
+    caplog.set_level(logging.INFO, logger="mhm2_proxy_tpu")
     fq = make_data(np.random.default_rng(2), tmp_path)
     args = ["-r", fq, "-k", "21", "33", "--block-reads", "1024", "--dump-kmers"] + flag
     ref_run_pipeline(ref_parse_args(args + ["-o", str(tmp_path / "ref")]))
@@ -166,3 +165,9 @@ def test_sharded_flags_raise(tmp_path, flag):
     log = read(str(tmp_path / "port" / "mhm2_torch.log"))
     assert "k=33: exchange" in log and "sharded stitch rounds" in log
     assert asm.round_stats[21]["records"] > 0
+    # every exchange statistic (records, MiB, k-mers a record, presummed,
+    # re-sent, spill rounds) equals the reference's
+    exchange = re.compile(r"k=\d+: exchange .*")
+    want = [r.getMessage() for r in caplog.records
+            if r.name == "mhm2_proxy_tpu" and exchange.match(r.getMessage())]
+    assert exchange.findall(log) == want and len(want) == 2

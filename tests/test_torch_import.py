@@ -79,13 +79,19 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
 
 def test_unported_paths_raise():
     from mhm2_proxy_tpu_torch.kcount import KmerCountStore
-    from mhm2_proxy_tpu_torch.main import run_pipeline
-    from mhm2_proxy_tpu_torch.options import Options
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        run_pipeline(Options(reads=["x.fastq"], device="cpu", shards=4, hosts=2))
     # ported since: k = 63's separate payload and the collapse past the
-    # budget, and the flat sharded counter (--shards without --hosts)
+    # budget, the flat sharded counter (--shards without --hosts), and the
+    # (hosts, devices) layout, which refuses what the reference cannot lay
+    # out: shards that do not divide over the hosts, more than 256 hosts
+    from mhm2_proxy_tpu_torch.models import Assembler, AssemblerConfig
+    from mhm2_proxy_tpu_torch.parallel import HierarchicalCounter
+
+    with pytest.raises(ValueError, match="do not divide"):
+        Assembler(AssemblerConfig(device="cpu", n_shards=3, n_hosts=2))._make_store(21)
+    with pytest.raises(ValueError, match="8 meta bits"):
+        HierarchicalCounter(21, (257, 1), device="cpu")
+    assert Assembler(AssemblerConfig(device="cpu", n_shards=4, n_hosts=2))._make_store(21).D == 2
     store = KmerCountStore(63, device="cpu", raw_budget_bytes=16)
     codes = np.full((4, 96), 1, np.uint8)
     store.add_reads_block(codes, np.ones((4, 96), bool), np.full(4, 96, np.int32))
@@ -104,7 +110,7 @@ def test_unported_paths_raise():
 COPIED_MODULES = {
     "io/fastq.py": 0, "io/stream.py": 0, "io/reads.py": 0, "io/native.py": 0,
     "io/fasta.py": 0, "utils/synth.py": 0,
-    "constants.py": 2, "options.py": 28, "io/gfa.py": 7, "utils/logger.py": 8,
+    "constants.py": 2, "options.py": 25, "io/gfa.py": 7, "utils/logger.py": 8,
 }
 
 

@@ -39,7 +39,7 @@ def _contigs(rng):
 def test_build_contig_index_equals_reference():
     contigs, _ = _contigs(np.random.default_rng(1))
     want = R.build_contig_index(contigs, 31)
-    got = P.build_contig_index(contigs, 31)
+    got = P.build_contig_index(contigs, 31, device="cpu")
     assert got["k"] == want["k"] == 31
     assert np.array_equal(got["words"].numpy().view(np.uint32), want["words"])
     for name in ("cid", "off", "rc", "concat", "cstart", "clen"):
@@ -48,7 +48,27 @@ def test_build_contig_index_equals_reference():
     w = want["words"]
     dup = np.all(w[1:] == w[:-1], axis=1)
     assert dup.sum() >= 30
-    assert P.build_contig_index(["ACGT", "AC"], 31) is None
+    assert P.build_contig_index(["ACGT", "AC"], 31, device="cpu") is None
+
+
+def test_post_asm_defaults_to_the_card():
+    """build_contig_index, and align_reads_to_contigs for the index it
+    builds, default to CUDA: without a card they raise, with no silent CPU
+    run."""
+    import inspect
+
+    contigs, g = _contigs(np.random.default_rng(1))
+    for fn in (P.build_contig_index, P.align_reads_to_contigs):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    codes = ascii_to_codes(g[:100].encode())[None, :]
+    lens = np.array([100], np.int32)
+    if torch.cuda.is_available():
+        assert P.build_contig_index(contigs, 31)["words"].is_cuda
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        P.build_contig_index(contigs, 31)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        P.align_reads_to_contigs(codes, lens, contigs, k=31)
 
 
 def test_table_lookup_equals_reference():
@@ -131,7 +151,7 @@ def test_post_asm_block_size_leaves_files_unchanged(tmp_path, block_reads):
 def test_align_reads_direct():
     rng = np.random.default_rng(4)
     genome = random_genome(rng, 1500)
-    idx = P.build_contig_index([genome], 31)
+    idx = P.build_contig_index([genome], 31, device="cpu")
     B, L = 32, 80
     starts = rng.integers(0, len(genome) - L, B)
     codes = np.stack([ascii_to_codes(genome[s : s + L].encode()) for s in starts])
