@@ -10,6 +10,7 @@
                                                    # minimizer rows
     python3 chip_smoke.py --only sharded [DIR]     # phase 8 alone, the minimizer metered
     python3 chip_smoke.py --only hosts [DIR]       # phase 9 alone, the supermer stage metered
+    python3 chip_smoke.py --only multiproc [DIR]   # phase 10 alone (processes, one card)
 
 (DIR: the checkout whose mhm2_proxy_tpu_torch to run, default this one, so
 that another tree, e.g. a parent commit unpacked beside it, is timed on the
@@ -68,7 +69,10 @@ Phases (any failure raises, and the script exits non-zero):
   4. the --arctic-scale community cut to 3 genomes (6.75 Mbp, 8x, 100 bp
      pairs, k = 21 33), checked against the JAX package's FASTA digest,
      the launch counts of its five kernels > 0, and >= 95% of the assembled
-     bases in exact substrings of the genomes;
+     bases in exact substrings of the genomes; then the same reads at
+     --hosts 2 --shards 4 -k 21 in blocks of 4096 reads: the exchange's
+     records, k-mers, presummed and re-sent rows and spill rounds equal the
+     JAX package's (ARCTIC3_HOSTS2_K21_EXCHANGE);
   5. the full --arctic-scale community (12 genomes, 27 Mbp, 2.16M reads)
      through the CLI with the default k ladder 21 33 55 77 99: per-k
      counting log (blocks, raw rows, split-LSM collapses, cascade merges and
@@ -113,9 +117,21 @@ Phases (any failure raises, and the script exits non-zero):
      and peaks (build_supermers, expand_supermers) and peak device memory;
      the sharded path's five launch counts > 0; each k = 21 shard table
      equals phase 8's shard for shard; final_assembly.fasta is
-     byte-identical to phase 8's; >= 95% exact-substring bases.
+     byte-identical to phase 8's; >= 95% exact-substring bases;
+ 10. processes over torch.distributed on the one card (parallel/worker.py,
+     k = 21): the CI sample as 'f1:f2' through two processes of 2 shards
+     each (gloo) equals the CLI's single-process --hosts 2 --shards 4; the
+     full community through two processes of 2 shards each (gloo, the
+     worker's single-file ingest) against a single-process control of the
+     same ingest through HierarchicalCounter(21, (2, 2)): each rank's shard
+     tables' live rows equal the control's shards, both ranks' contigs and
+     the shared final_assembly.fasta equal the control's, per-rank logs;
+     each rank's counting and traversal walls, the bytes and seconds of its
+     cross-rank transport and its peak device memory; then one process of
+     4 shards over NCCL on the same reads equals the control.
 Prints the kernels' JSON summary (launch counts of phase 5, ssw's of phase
-7, minimizer's of phase 8, hosts_launches: phase 9's; ladder_ms: phase 5's
+7, minimizer's of phase 8, hosts_launches: phase 9's, multiproc_launches:
+phase 10's two community ranks' together; ladder_ms: phase 5's
 device ms, minimizer's of phase 8, metered the same way), then the card
 line, then as the last line
 {"ok": true, "device": {...}}. Without CUDA it exits 2, and without the
@@ -152,6 +168,13 @@ CI_SHARDS4_FASTA_SHA256 = "836b8d88f13b4741e9b8adf5c90457ba10020459711a8fa0707bb
 CI_HOSTS2_FASTA_SHA256 = "836b8d88f13b4741e9b8adf5c90457ba10020459711a8fa0707bb4beaba8393f"
 ARCTIC3_FASTQ_SHA256 = "491bd9fb910e892ec85dc9dd8d8358aaaddc598794d4b6f1aaa78b08cf43be15"
 ARCTIC3_FASTA_SHA256 = "b9863311bb0099aea359a6dbeb623bce8910e665ca86a2f609f1a4242219a2bb"
+# the JAX package's exchange line for that cut at `-k 21 --hosts 2 --shards
+# 4` on the CPU (8 virtual devices, its CPU block of 4096 reads: `python -m
+# mhm2_proxy_tpu -r arctic-scale.fastq -k 21 --hosts 2 --shards 4`): "8701453
+# records (199 MiB all_to_all) for 42063880 kmers (4.8 kmers/record), 34522
+# presummed, 0 re-sent in 0 spill rounds"; as (records, k-mers, presummed,
+# re-sent, spill rounds)
+ARCTIC3_HOSTS2_K21_EXCHANGE = (8701453, 42063880, 34522, 0, 0)
 # the full community's FASTQ, computed with the same generator on the CPU
 ARCTIC12_FASTQ_SHA256 = "d6a96821ddd735107a23b4cb83ee64ebd619551136cc657648ecc07d3334aa3c"
 # the JAX package's post-assembly files for the CI sample on the CPU
@@ -733,6 +756,41 @@ def phase_join(record, gen):
            f"{M} merged rows ({T} table, {Q} queries) kw=2", nbytes(merged, ka), M * 8)
     del merged, ka, pa, words, qw, keys
     phase_join_separate(record, gen)
+    phase_join_past_2_28(record, gen)
+
+
+def phase_join_past_2_28(record, gen):
+    """The separate-lane join past 2^28 queries, where its staging runs in
+    passes of 512 query-id windows of 2^19 answers: 90,000,000 runs of 4
+    equal keys (kw = 1), each a table row (80% valid) and 3 queries,
+    270,000,000 queries in all (two passes, the second of 3 windows)."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import join
+    from mhm2_proxy_tpu_torch.ops.u32 import narrow
+
+    n_runs = 90_000_000
+    M, Q = 4 * n_runs, 3 * n_runs
+    row = torch.arange(M, device="cuda")
+    is_t = row % 4 == 0
+    src = torch.where(is_t, row // 4, 0)
+    src[~is_t] = torch.randperm(Q, device="cuda", generator=gen) | join.SEP_QUERY_BIT
+    pay = torch.randint(-(1 << 31), 1 << 31, (M,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    merged = ((row // 4).to(torch.int32), narrow(src), pay)
+    del row, is_t, src
+    nv = torch.tensor(int(0.8 * n_runs), dtype=torch.int32, device="cuda")
+    kern = lambda: join._propagate_sep_cuda(merged, nv, 1, Q, 32)  # noqa: E731
+    plain = lambda: join._propagate_sep_plain(merged, nv, 1, Q, 32)  # noqa: E731
+    ka, pa = kern(), plain()
+    err = max_abs_err((narrow(ka), narrow(ka >> 32)), (narrow(pa), narrow(pa >> 32)))
+    hits = int((pa != 0).sum())
+    check(0 < hits < Q, f"join past 2^28 queries: {hits} answers")
+    del pa
+    record("join", err, cuda_ms(kern), cuda_ms(plain),
+           f"{M} merged rows ({n_runs} table, {Q} queries) kw=1 separate lanes, past 2^28 "
+           "queries", nbytes(merged, ka), M * 8)
+    del merged, ka
 
 
 # The least int32 operations the minimizer needs a position, at any k (u64
@@ -1519,13 +1577,22 @@ def post_asm_gate(out_dir, golden=None, stale=None):
     return m
 
 
-def phase_ci(work):
+def ci_sample(work):
+    """The CI sample's FASTQ (made once a run, checked against its digest)."""
     d = os.path.join(work, "ci_data")
-    fq, _gens, n_pairs = make_community(d, "synth_sample", 3, 20000, 5000, 18.0, 150,
-                                        20260817, False)
-    digest = sha256(fq)
-    log(f"[ci] {n_pairs} pairs, fastq sha256 {digest}")
-    check(digest == CI_FASTQ_SHA256, "CI sample FASTQ differs from ci/make_sample.py's (numpy drift)")
+    fq = os.path.join(d, "synth_sample.fastq")
+    if not os.path.exists(fq):
+        fq, _gens, n_pairs = make_community(d, "synth_sample", 3, 20000, 5000, 18.0, 150,
+                                            20260817, False)
+        digest = sha256(fq)
+        log(f"[ci] {n_pairs} pairs, fastq sha256 {digest}")
+        check(digest == CI_FASTQ_SHA256,
+              "CI sample FASTQ differs from ci/make_sample.py's (numpy drift)")
+    return fq
+
+
+def phase_ci(work):
+    fq = ci_sample(work)
     out = os.path.join(work, "ci_run")
     wall, counts, _ = run_cli(fq, out, (21, 33), POST_ASM)
     fa = os.path.join(out, "final_assembly.fasta")
@@ -1613,6 +1680,17 @@ def phase_real(work):
         f"final_assembly.fasta sha256 {fdig}")
     check(tot > 0 and frac >= 0.95, frac)
     check(fdig == ARCTIC3_FASTA_SHA256, "final_assembly.fasta differs from the JAX package's")
+    # supermer density on 100 bp reads: the exchange at --hosts 2 --shards 4,
+    # k = 21, in the reference's blocks of 4096 reads
+    wall, _, asm = run_cli(fq, os.path.join(work, "arctic3_hosts2"), (21,),
+                           ("--hosts", "2", "--shards", "4", "--block-reads", "4096"))
+    r = asm.round_stats[21]
+    got = (r["records"], r["exchanged_kmers"], r["presummed"], r["resent"], r["spill_rounds"])
+    log(f"[real] --hosts 2 --shards 4 -k 21 --block-reads 4096: (records, k-mers, presummed, "
+        f"re-sent, spill rounds) {got}, {got[1] / got[0]:.3f} k-mers a record; the JAX "
+        f"package's {ARCTIC3_HOSTS2_K21_EXCHANGE}; wall {wall:.2f} s")
+    check(got == ARCTIC3_HOSTS2_K21_EXCHANGE, "the supermer exchange differs from the JAX "
+          "package's on the 6.75 Mbp cut")
 
 
 def arctic_community(work):
@@ -2019,6 +2097,184 @@ def phase_hosts_arctic(work, fq, gens, sharded=None):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: processes over torch.distributed
+# ---------------------------------------------------------------------------
+
+# reads in a process's block: the CLI's CUDA block (a single-process
+# control takes two of them at once)
+WORKER_BLOCK_READS = 131072
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_workers(fastq, out_dir, n, local_shards, block_reads, timeout=900):
+    """n processes of `python -m mhm2_proxy_tpu_torch.parallel.worker` on
+    the card (they share it), each one's output in out_dir/worker-<pid>.out;
+    fails unless every one exits 0, and kills the rest as soon as one fails.
+    Returns (wall, each rank's worker-<pid>.json, each rank's contigs)."""
+    import mhm2_proxy_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(mhm2_proxy_tpu_torch.__file__)))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=pkg_root)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for pid in range(n):
+            out = open(os.path.join(out_dir, f"worker-{pid}.out"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "mhm2_proxy_tpu_torch.parallel.worker", str(pid), str(n),
+                 str(port), fastq, out_dir, "--device", "cuda", "--local-shards",
+                 str(local_shards), "--block-reads", str(block_reads), "--bucket-cap", "0"],
+                # every rank on this host: they share its one card
+                env=dict(env, MHM2_TPU_LOCAL_RANK=str(pid), MHM2_TPU_LOCAL_PROCS=str(n)),
+                cwd=pkg_root, stdout=out, stderr=subprocess.STDOUT), out))
+        while any(p.poll() is None for p, _ in procs):
+            failed = any(p.poll() not in (None, 0) for p, _ in procs)
+            check(not failed and time.perf_counter() - t0 < timeout,
+                  f"a worker of {n} failed or the run passed {timeout} s")
+            time.sleep(0.5)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+            if p.returncode:
+                log(open(f.name).read()[-4000:])
+    wall = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p, _ in procs),
+          f"workers exited {[p.returncode for p, _ in procs]}")
+    reports = [json.load(open(os.path.join(out_dir, f"worker-{pid}.json"))) for pid in range(n)]
+    lists = [json.load(open(os.path.join(out_dir, f"contigs-{pid}.json"))) for pid in range(n)]
+    return wall, reports, lists
+
+
+def log_ranks(tag, wall, reports):
+    for r in reports:
+        ct, tt = r["count_transport"], r["transport"]
+        log(f"[{tag}] rank {r['pid']}/{r['n_procs']} on {r['device']}: {r['reads']} reads, "
+            f"counting {r['count_s']:.2f} s, traversal {r['traverse_s']:.2f} s; cross-rank "
+            f"transport: counting {ct['bytes']} bytes in {ct['seconds']:.3f} s ({ct['calls']} "
+            f"collectives), traversal {tt['bytes']} bytes in {tt['seconds']:.3f} s "
+            f"({tt['calls']} collectives); peak device memory {r['peak_bytes'] / 1e9:.2f} GB; "
+            f"table rows a shard {r['rows']}, shards {[(n, d[:16]) for n, d in r['shards']]}; "
+            f"exchange {r['exchange']}; stitch rounds {r['stitch_rounds']}; {r['contigs']} "
+            f"contigs; launches {r['launches']}")
+    log(f"[{tag}] {len(reports)} process(es): wall {wall:.2f} s (process start and the "
+        "kernels' load included)")
+
+
+def split_pairs(fq, d):
+    """An interleaved FASTQ as its two mate files: 'f1:f2'."""
+    from mhm2_proxy_tpu_torch.io.fastq import FastqReader, write_fastq
+
+    r = FastqReader(fq)
+    f1, f2 = os.path.join(d, "mates_1.fastq"), os.path.join(d, "mates_2.fastq")
+    for f, sl in ((f1, slice(0, None, 2)), (f2, slice(1, None, 2))):
+        write_fastq(f, r.ids[sl], r.seqs[sl], r.quals[sl])
+    return f"{f1}:{f2}"
+
+
+def phase_multiproc(work, fq):
+    """Phase 10: processes over torch.distributed on the one card. The CI
+    sample as 'f1:f2' through two worker processes of 2 shards each (gloo)
+    against the CLI's single-process --hosts 2 --shards 4 at k = 21 (its
+    FASTA at --min-ctg-print-len 0 holds every contig); then the full
+    community (fq, the interleaved file: the worker's single-file ingest,
+    unpaired reads) through two processes of 2 shards each against a
+    single-process control of the same ingest, whole, through
+    HierarchicalCounter(21, (2, 2)) and the sharded traversal: each rank's
+    shard tables' live rows, both ranks' contigs and the shared FASTA; then
+    one process of 4 shards over NCCL on the control's reads. Returns the
+    kernels' launches summed over the two community ranks."""
+    import torch
+
+    from mhm2_proxy_tpu_torch.dbjg import traverse_debruijn_graph_sharded
+    from mhm2_proxy_tpu_torch.io.fasta import read_fasta
+    from mhm2_proxy_tpu_torch.parallel import HierarchicalCounter
+    from mhm2_proxy_tpu_torch.parallel.worker import count_reads, fasta_records, shard_digests
+
+    def same_fasta(out_dir, contigs):
+        return open(os.path.join(out_dir, "final_assembly.fasta"), "rb").read() == \
+            fasta_records(contigs)
+
+    # the CI sample, 2 x 2, against the CLI's single process
+    d = os.path.join(work, "mp_ci")
+    os.makedirs(d, exist_ok=True)
+    ci_fq = ci_sample(work)
+    wall, reports, lists = run_workers(split_pairs(ci_fq, d), os.path.join(d, "out"), 2, 2, 4096)
+    log_ranks("multiproc-ci", wall, reports)
+    cli_out = os.path.join(d, "cli")
+    cli_wall = run_cli(ci_fq, cli_out, (21,), ("--hosts", "2", "--shards", "4",
+                                               "--min-ctg-print-len", "0"))[0]
+    cli = [[seq, float(name.split()[1])] for name, seq in
+           read_fasta(os.path.join(cli_out, "final_assembly.fasta"))]
+    ok = lists[0] == lists[1] == cli and same_fasta(os.path.join(d, "out"), cli)
+    log(f"[multiproc-ci] {len(cli)} contigs; both ranks == the CLI's --hosts 2 --shards 4 k=21 "
+        f"({cli_wall:.2f} s) and the shared FASTA == its rendering: {ok}")
+    check(ok and len(cli) > 0, "the CI sample's two-process contigs differ from the CLI's")
+
+    # the community: two processes, then the single-process control
+    torch.cuda.empty_cache()
+    out = os.path.join(work, "mp_arctic")
+    wall, reports, lists = run_workers(fq, out, 2, 2, WORKER_BLOCK_READS)
+    log_ranks("multiproc", wall, reports)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counter = HierarchicalCounter(21, (2, 2), device="cuda")
+    n_reads = count_reads(counter, fq, 0, 1, 2 * WORKER_BLOCK_READS, "cuda")
+    table = counter.finalize()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    shards = shard_digests(table)
+    rows = table.words.shape[1]
+    ctrl = [list(c) for c in sorted(traverse_debruijn_graph_sharded(table, 21))]
+    t2 = time.perf_counter()
+    del table, counter
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    log(f"[multiproc] control (one process, 2 x 2): {n_reads} reads, counting {t1 - t0:.2f} s, "
+        f"traversal {t2 - t1:.2f} s, peak device memory {peak / 1e9:.2f} GB, table rows a shard "
+        f"{rows}, shards {[(n, dg[:16]) for n, dg in shards]}, {len(ctrl)} contigs")
+    for r in reports:
+        mine = shards[r["pid"] * 2 : r["pid"] * 2 + 2]
+        check(r["shards"] == mine, f"rank {r['pid']}: a shard table differs from the control's")
+        check(all(r["launches"][name] > 0 for name in SHARDED_KERNELS),
+              f"rank {r['pid']}: a sharded-path kernel never ran: {r['launches']}")
+        check(os.path.exists(os.path.join(out, "per_rank", "00000000", f"{r['pid']:08d}",
+                                          "mhm2_torch.log")), f"rank {r['pid']}: no log")
+    check(sum(r["reads"] for r in reports) == n_reads, "the ranks' reads != the control's")
+    check(lists[0] == lists[1] == ctrl and len(ctrl) > 0,
+          "the ranks' contigs differ from the control's")
+    check(same_fasta(out, ctrl), "the shared final_assembly.fasta differs from the control's")
+    log(f"[multiproc] both ranks' shard tables (live rows) == the control's shards; padded rows "
+        f"a shard {reports[0]['rows']} (control {rows}); contigs == the control's; shared "
+        "final_assembly.fasta == the control's rendering; per-rank logs present")
+
+    # one process over NCCL on the control's reads
+    out1 = os.path.join(work, "mp_nccl")
+    wall, reports1, lists1 = run_workers(fq, out1, 1, 4, 2 * WORKER_BLOCK_READS)
+    log_ranks("multiproc-nccl", wall, reports1)
+    backend = "backend nccl" in open(os.path.join(out1, "mhm2_torch.log")).read()
+    check(backend, "the one-process run did not take the NCCL backend")
+    check(reports1[0]["shards"] == shards and lists1[0] == ctrl,
+          "the one-process NCCL run differs from the control")
+    log("[multiproc-nccl] backend nccl; shard tables and contigs == the control's")
+    return {name: sum(r["launches"][name] for r in reports) for name in reports[0]["launches"]}
+
+
 def phase_post_asm(fq, out):
     """--post-asm-only --post-asm-align --post-asm-abundance on the full
     community's output directory: every read aligned to the 27 Mbp
@@ -2177,13 +2433,15 @@ def main(argv):
     # extract, finalize, join, collapse (scan, compact), ssw and minimizer
     # rows, only phase 8 (the 27 Mbp community with --shards 4, the
     # minimizer metered), or only phase 9 (the same with --hosts 2 --shards
-    # 4, the supermer stage metered), on the package of DIR (default this
-    # checkout),
+    # 4, the supermer stage metered), or only phase 10 (processes over
+    # torch.distributed on the one card), on the package of DIR (default
+    # this checkout),
     # e.g. a parent tree unpacked beside it
     only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
-    if argv and only not in ("callers", "ladder", "stitch", "kernels", "sharded", "hosts"):
-        print("usage: chip_smoke.py [--only callers|ladder|stitch|kernels|sharded|hosts "
-              "[PACKAGE_DIR]]", file=sys.stderr)
+    if argv and only not in ("callers", "ladder", "stitch", "kernels", "sharded", "hosts",
+                             "multiproc"):
+        print("usage: chip_smoke.py [--only callers|ladder|stitch|kernels|sharded|hosts|"
+              "multiproc [PACKAGE_DIR]]", file=sys.stderr)
         return 2
     root = os.path.abspath(argv[2]) if len(argv) > 2 else ROOT
     if not os.path.isdir(os.path.join(root, "mhm2_proxy_tpu_torch")):
@@ -2227,8 +2485,10 @@ def main(argv):
                 phase_stitch(k21.tables[0])
             elif only == "sharded":
                 phase_sharded_arctic(work, *arctic_community(work))
-            else:
+            elif only == "hosts":
                 phase_hosts_arctic(work, *arctic_community(work))
+            else:
+                log(f"[multiproc] launches {phase_multiproc(work, arctic_community(work)[0])}")
         finally:
             shutil.rmtree(work, ignore_errors=True)
         return 0
@@ -2262,6 +2522,7 @@ def main(argv):
             work, fq, gens, out, k21)
         counts["minimizer"] = sharded_counts["minimizer"]
         hosts_counts = phase_hosts_arctic(work, fq, gens, sharded)
+        multiproc_counts = phase_multiproc(work, fq)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = []
@@ -2272,7 +2533,8 @@ def main(argv):
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
                             shape=r["shape"], ladder_ms=ladder_ms.get(name),
-                            hosts_launches=hosts_counts[name]))
+                            hosts_launches=hosts_counts[name],
+                            multiproc_launches=multiproc_counts[name]))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": summary}))
     log(card_line())

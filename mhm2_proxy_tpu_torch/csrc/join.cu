@@ -58,7 +58,12 @@
 // image the same way; and join_image builds each image in shared memory
 // (zeros where no query answered) and writes it out in order. Repeated
 // query ids would overflow a window's or an image's slots: the kernels
-// then set the scratch's overflow word, and the wrapper raises.
+// then set the scratch's overflow word, and the wrapper raises. The staging
+// holds at most 512 windows (2^28 u64 or 2^29 u32 answers); past that the
+// three launches run in passes, each over the next 512 windows of query
+// ids [q0, q1): the tile launch takes a query id in it as its id less q0
+// and drops the others, and the pass writes answers from ans + q0, so each
+// pass is a call of fewer than 512 windows with the same scratch.
 #include "common.cuh"
 
 namespace {
@@ -241,7 +246,7 @@ __device__ __forceinline__ uint32_t div_block(int x, int B, uint32_t mB) {
 template <int KW, class Src>
 __global__ void __launch_bounds__(kThreads, 4)
     join_kernel(CLanes keys, Src src, int64_t M, const int32_t* __restrict__ n_valid_p, int reach,
-                typename Src::Answer* __restrict__ ans, int64_t Q,
+                typename Src::Answer* __restrict__ ans, int64_t q0, int64_t Q,
                 Staging<typename Src::Answer> stg) {
   typedef typename Src::Answer Answer;
   __shared__ JoinShared<Answer> sh;
@@ -275,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, 4)
         sh.pre[j] = av[q];
         sh.start[j] = sv[q];
         const int i = j - t0;
-        if (i >= 0 && i < tn) sh.dest[i] = dq[q] >= 0 && dq[q] < Q ? (int32_t)dq[q] : -1;
+        if (i >= 0 && i < tn) sh.dest[i] = dq[q] >= q0 && dq[q] < Q ? (int32_t)(dq[q] - q0) : -1;
       }
     }
   }
@@ -555,42 +560,36 @@ __global__ void __launch_bounds__(kImageThreads)
 }
 
 // The staging's bytes for Q answers of `answer_bytes` each: 0 where they
-// fit one bucket (direct stores), -1 past kMaxBuckets buckets.
+// fit one bucket (direct stores), else those of one pass (at most
+// kMaxBuckets buckets); -1 from Q = 2^31 on.
 int64_t scratch_bytes_for(int64_t Q, int64_t answer_bytes) {
+  if (Q >= (1ll << 31)) return -1;
   const int64_t cap = kWindowBytes / answer_bytes;
   if (Q <= cap) return 0;
-  const int64_t n_buckets = (Q + cap - 1) / cap;
-  if (n_buckets > kMaxBuckets) return -1;
+  int64_t n_buckets = (Q + cap - 1) / cap;
+  n_buckets = n_buckets < kMaxBuckets ? n_buckets : kMaxBuckets;
   return 2 * n_buckets * cap * (answer_bytes + 4) + 4 * (n_buckets * (1 + kSub) + 1);
 }
 
+// One pass: the answers of query ids [q0, Q), with the call's staging (its
+// buckets laid out for stg.n_buckets; none: direct stores, in one pass).
 template <class Src>
 int launch(int kw, int64_t M, cudaStream_t s, const CLanes& k, const Src& src, const int32_t* nv,
-           int reach, typename Src::Answer* ans, int64_t Q, void* scratch, int64_t scratch_bytes) {
+           int reach, typename Src::Answer* ans, int64_t q0, int64_t Q,
+           Staging<typename Src::Answer> stg, bool first) {
   typedef typename Src::Answer Answer;
-  Staging<Answer> stg = {};
-  const int64_t need = scratch_bytes_for(Q, sizeof(Answer));
-  if (need < 0 || scratch_bytes < need) return (int)cudaErrorInvalidValue;
-  if (need > 0) {
-    stg.cap = kWindowBytes / (int64_t)sizeof(Answer);
-    while ((1ll << stg.shift) < stg.cap) ++stg.shift;
-    stg.img_shift = stg.shift - kSubBits;
-    stg.n_buckets = (int)((Q + stg.cap - 1) / stg.cap);
-    const int64_t pairs = (int64_t)stg.n_buckets * stg.cap;
-    stg.val = (Answer*)scratch;
-    stg.val2 = stg.val + pairs;
-    stg.dest = (uint32_t*)(stg.val2 + pairs);
-    stg.dest2 = stg.dest + pairs;
-    stg.cursor = (int*)(stg.dest2 + pairs);
-    stg.cursor2 = stg.cursor + stg.n_buckets;
-    stg.overflow = stg.cursor2 + stg.n_buckets * kSub;  // the scratch's last int32
-    cudaMemsetAsync(stg.cursor, 0, 4 * ((size_t)stg.n_buckets * (1 + kSub) + 1), s);
+  if (stg.n_buckets) {
+    // the cursors, and on the first pass the overflow word after them
+    cudaMemsetAsync(stg.cursor, 0, 4 * ((size_t)stg.n_buckets * (1 + kSub) + first), s);
+    stg.n_buckets = (int)((Q - q0 + stg.cap - 1) / stg.cap);
   }
   const int64_t tile = kWin - 2 * reach;
   const unsigned blocks = (unsigned)((M + tile - 1) / tile);
   switch (kw) {
-#define MHM2_JOIN_CASE(KW) \
-  case KW: join_kernel<KW, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, Q, stg); break;
+#define MHM2_JOIN_CASE(KW)                                                                  \
+  case KW:                                                                                  \
+    join_kernel<KW, Src><<<blocks, kThreads, 0, s>>>(k, src, M, nv, reach, ans, q0, Q, stg); \
+    break;
     MHM2_JOIN_CASE(1)
     MHM2_JOIN_CASE(2)
     MHM2_JOIN_CASE(3)
@@ -607,17 +606,55 @@ int launch(int kw, int64_t M, cudaStream_t s, const CLanes& k, const Src& src, c
     join_split<Answer><<<(unsigned)(stg.n_buckets * chunks), kSplitThreads, 0, s>>>(stg, chunks);
     cudaFuncSetAttribute(join_image<Answer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)kImageBytes);
-    const int64_t images = (Q + (1ll << stg.img_shift) - 1) >> stg.img_shift;
-    join_image<Answer><<<(unsigned)images, kImageThreads, kImageBytes, s>>>(stg, Q, ans);
+    const int64_t images = (Q - q0 + (1ll << stg.img_shift) - 1) >> stg.img_shift;
+    join_image<Answer><<<(unsigned)images, kImageThreads, kImageBytes, s>>>(stg, Q - q0,
+                                                                             ans + q0);
   }
   return (int)cudaGetLastError();
+}
+
+// A call: the staging laid out for at most kMaxBuckets buckets, then one
+// pass, or passes of that many windows of query ids where Q needs more.
+template <class Src>
+int launch_passes(int kw, int64_t M, cudaStream_t s, const CLanes& k, const Src& src,
+                  const int32_t* nv, int reach, typename Src::Answer* ans, int64_t Q,
+                  void* scratch, int64_t scratch_bytes) {
+  typedef typename Src::Answer Answer;
+  Staging<Answer> stg = {};
+  const int64_t need = scratch_bytes_for(Q, sizeof(Answer));
+  if (need < 0 || scratch_bytes < need) return (int)cudaErrorInvalidValue;
+  int64_t span = Q;  // query ids a pass
+  if (need > 0) {
+    stg.cap = kWindowBytes / (int64_t)sizeof(Answer);
+    while ((1ll << stg.shift) < stg.cap) ++stg.shift;
+    stg.img_shift = stg.shift - kSubBits;
+    const int64_t n_buckets = (Q + stg.cap - 1) / stg.cap;
+    stg.n_buckets = (int)(n_buckets < kMaxBuckets ? n_buckets : kMaxBuckets);
+    const int64_t pairs = (int64_t)stg.n_buckets * stg.cap;
+    stg.val = (Answer*)scratch;
+    stg.val2 = stg.val + pairs;
+    stg.dest = (uint32_t*)(stg.val2 + pairs);
+    stg.dest2 = stg.dest + pairs;
+    stg.cursor = (int*)(stg.dest2 + pairs);
+    stg.cursor2 = stg.cursor + stg.n_buckets;
+    stg.overflow = stg.cursor2 + stg.n_buckets * kSub;  // the scratch's last int32
+    span = pairs;
+  }
+  int64_t q0 = 0;
+  do {  // once where Q is 0
+    const int64_t q1 = Q - q0 < span ? Q : q0 + span;
+    const int rc = launch(kw, M, s, k, src, nv, reach, ans, q0, q1, stg, q0 == 0);
+    if (rc) return rc;
+    q0 = q1;
+  } while (q0 < Q);
+  return 0;
 }
 
 }  // namespace
 
 // The staging bytes that a call with Q answers of answer_bytes (4: mhm2_join,
-// 8: mhm2_join_sep) needs: 0 where the answers are stored directly, -1 past
-// 512 buckets of 4 MB.
+// 8: mhm2_join_sep) needs: 0 where the answers are stored directly, else at
+// most 512 buckets of 4 MB, which passes reuse; -1 from Q = 2^31 on.
 extern "C" int64_t mhm2_join_scratch_bytes(int64_t Q, int answer_bytes) {
   return scratch_bytes_for(Q, answer_bytes);
 }
@@ -636,9 +673,9 @@ extern "C" int mhm2_join(const void* const* keys, int kw, const void* src, int64
   MHM2_REQUIRE(reach >= 0 && reach <= kMaxReach);
   MHM2_REQUIRE(M >= 0 && M < (1ll << 31) && Q >= 0 && Q <= (1ll << 25));
   if (M == 0) return (int)cudaGetLastError();
-  return launch(kw, M, (cudaStream_t)stream, make_clanes(keys, kw),
-                FusedSrc{(const uint32_t*)src, payload_bits}, (const int32_t*)n_valid, reach,
-                (uint32_t*)ans, Q, scratch, scratch_bytes);
+  return launch_passes(kw, M, (cudaStream_t)stream, make_clanes(keys, kw),
+                       FusedSrc{(const uint32_t*)src, payload_bits}, (const int32_t*)n_valid,
+                       reach, (uint32_t*)ans, Q, scratch, scratch_bytes);
 }
 
 // The separate-lane layout: src (row idx, bit 31 on query rows) and pay
@@ -651,7 +688,8 @@ extern "C" int mhm2_join_sep(const void* const* keys, int kw, const void* src, c
   MHM2_REQUIRE(kw >= 1 && kw <= 8 && reach >= 0 && reach <= kMaxReach);
   MHM2_REQUIRE(M >= 0 && M < (1ll << 31) && Q >= 0 && Q < (1ll << 31));
   if (M == 0) return (int)cudaGetLastError();
-  return launch(kw, M, (cudaStream_t)stream, make_clanes(keys, kw),
-                SepSrc{(const uint32_t*)src, (const uint32_t*)pay}, (const int32_t*)n_valid,
-                reach, (unsigned long long*)ans, Q, scratch, scratch_bytes);
+  return launch_passes(kw, M, (cudaStream_t)stream, make_clanes(keys, kw),
+                       SepSrc{(const uint32_t*)src, (const uint32_t*)pay},
+                       (const int32_t*)n_valid, reach, (unsigned long long*)ans, Q, scratch,
+                       scratch_bytes);
 }

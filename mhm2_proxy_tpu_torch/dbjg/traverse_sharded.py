@@ -5,7 +5,10 @@ The reference's rank-hopping walks (dbjg_traversal.cpp:245-289, one RPC per
 remote hop) become two batched cross-shard lookups, one per walk direction,
 then distributed pointer doubling (stitch_sharded.py). Edge, conflict and
 self-loop rules are those of dbjg/traverse.py::build_edges. Edge arrays stay
-(S, T) on the device; the stitch brings only on-path states to the host.
+(D, T) on the device, over the rank's D shards (global node id = shard * T +
+row, the rank's shards from shard0 on); the lookups cross ranks, and the
+walk-termination counts are summed over them. The stitch brings only
+rendered contigs to the host.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import time
 import torch
 
 from ..ops import bitkmer as bk
+from ..parallel import comm
 from ..parallel.sharded import ShardedTable, owner_shards, sharded_lookup
 from .stitch_sharded import stitch_paths_sharded
 from .traverse import term_stats_to_dict
@@ -36,12 +40,13 @@ def _neighbor_queries(words, left, right, n, k: int):
 
 
 def _edge_conditions(uu, b_rc, p_rc, a_first, a_last, r_found, b_left, b_right, b_idx,
-                     l_found, p_left, p_right, p_idx, b_shard, p_shard):
-    """Elementwise edge and walk-termination rules on the (S, T) arrays;
-    global node ids are shard * T + row."""
-    S, T = uu.shape
+                     l_found, p_left, p_right, p_idx, b_shard, p_shard, shard0: int = 0):
+    """Elementwise edge and walk-termination rules on the (D, T) arrays of
+    global shards shard0 ...; global node ids are shard * T + row."""
+    D, T = uu.shape
     dev = uu.device
-    self_gid = (torch.arange(S, device=dev)[:, None] * T + torch.arange(T, device=dev)[None, :])
+    self_gid = ((shard0 + torch.arange(D, device=dev))[:, None] * T
+                + torch.arange(T, device=dev)[None, :])
     b_gid = b_shard.to(torch.int64) * T + b_idx
     p_gid = p_shard.to(torch.int64) * T + p_idx
     b_uu = (b_left < 4) & (b_right < 4)
@@ -62,10 +67,10 @@ def _edge_conditions(uu, b_rc, p_rc, a_first, a_last, r_found, b_left, b_right, 
         repeat = uu & found & self_hit
         return torch.stack([deadend.sum(), fork.sum(), conflict.sum(), repeat.sum()])
 
-    term_stats = torch.stack([
+    term_stats = comm.all_sum_tensor(torch.stack([
         _term(r_found, b_left, b_right, r_ok, b_gid == self_gid),
         _term(l_found, p_left, p_right, l_ok, p_gid == self_gid),
-    ])
+    ]))
     edges = dict(
         uu=uu, r_gid=b_gid.to(torch.int32), r_port=b_rc.to(torch.int32), r_ok=r_ok,
         l_gid=p_gid.to(torch.int32), l_port=(~p_rc).to(torch.int32), l_ok=l_ok,
@@ -74,21 +79,22 @@ def _edge_conditions(uu, b_rc, p_rc, a_first, a_last, r_found, b_left, b_right, 
 
 
 def build_edges_sharded(table: ShardedTable, k: int):
-    """Reciprocal UU edges across shards, kept (S, T) on the device. Returns
+    """Reciprocal UU edges across shards, kept (D, T) on the device. Returns
     (edges, term_stats): edges holds the uu mask and, per direction, the
     neighbour's global node id, entry port and validity; term_stats (2, 4)
-    the walk terminations (deadend, fork, conflict, repeat) per direction."""
+    the walk terminations (deadend, fork, conflict, repeat) per direction,
+    over every rank."""
     S = table.S
     uu, b_can, b_rc, p_can, p_rc, a_first, a_last = _neighbor_queries(
         table.words, table.left, table.right, table.n, k)
     r_found, _, b_left, b_right, b_idx = sharded_lookup(table, b_can, uu)
     l_found, _, p_left, p_right, p_idx = sharded_lookup(table, p_can, uu)
     # each query's owner shard, computed on the source side with the router's hash
-    b_shard = torch.stack([owner_shards(b_can[s], k, S) for s in range(S)])
-    p_shard = torch.stack([owner_shards(p_can[s], k, S) for s in range(S)])
+    b_shard = torch.stack([owner_shards(b_can[s], k, S) for s in range(table.n_local)])
+    p_shard = torch.stack([owner_shards(p_can[s], k, S) for s in range(table.n_local)])
     del b_can, p_can
     return _edge_conditions(uu, b_rc, p_rc, a_first, a_last, r_found, b_left, b_right, b_idx,
-                            l_found, p_left, p_right, p_idx, b_shard, p_shard)
+                            l_found, p_left, p_right, p_idx, b_shard, p_shard, table.shard0)
 
 
 def traverse_debruijn_graph_sharded(table: ShardedTable, k: int, stats: dict | None = None):

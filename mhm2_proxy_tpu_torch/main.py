@@ -12,7 +12,12 @@ reads to the final_assembly.fasta already in the output directory.
 --shards S counts and traverses over S shards on the one device; with
 --hosts H > 1 as well, the S shards form H hosts of S / H devices and the
 k-mers travel as supermers through the hierarchical two-stage exchange
-(within each host, then across hosts), all on the one device.
+(within each host, then across hosts), all on the one device. A launcher
+or a scheduler that exports the rendezvous variables (MHM2_TPU_NUM_PROCS,
+MHM2_TPU_PROC_ID, MHM2_TPU_COORDINATOR; launcher.detect_scheduler_env fills
+them from SLURM, MPI, PBS or LSF) makes main() join a process group first
+(parallel/multihost.py::init_multihost); the sharded store then spreads its
+shards over the processes.
 """
 
 from __future__ import annotations
@@ -29,6 +34,23 @@ from .models.assembler import Assembler, AssemblerConfig, Contig
 from .options import Options, parse_args, setup_output_dir
 from .utils.logger import get_logger
 from .utils.memlog import MemoryTracker
+
+
+def log_module(log, name: str, secs: float):
+    """[module] timing line; multi-process runs aggregate min/avg/max across
+    processes (reference MinSumMax reductions, upcxx-utils/timers.hpp:42-161)."""
+    from .parallel import comm
+
+    if comm.world() > 1:
+        from .parallel.multihost import min_sum_max
+
+        s = min_sum_max(secs)
+        log.info(
+            f"[module] {name} {s['avg']:.2f}s "
+            f"(min {s['min']:.2f} max {s['max']:.2f} over {s['n']} procs)"
+        )
+    else:
+        log.info(f"[module] {name} {secs:.2f}s")
 
 
 def _check_supported(opts: Options) -> None:
@@ -78,6 +100,12 @@ def run_pipeline(opts: Options) -> Assembler:
     log = get_logger(log_file=os.path.join(out_dir, "mhm2_torch.log"), verbose=opts.verbose)
     opts.save(os.path.join(out_dir, "mhm2_torch.config"))
     log.info(f"Starting mhm2_torch in {out_dir} with k={opts.kmer_lens} on {device}")
+    from .parallel import comm
+
+    if comm.active():
+        import torch.distributed as dist
+
+        log.info(f"process {comm.rank()} of {comm.world()}, backend {dist.get_backend()}")
 
     cfg = AssemblerConfig(
         kmer_lens=tuple(opts.kmer_lens),
@@ -114,7 +142,7 @@ def run_pipeline(opts: Options) -> Assembler:
                 for fname in opts.unpaired:
                     r = FastqReader(fname)
                     asm.add_unpaired(r.seqs, r.quals)
-        log.info(f"[module] merge_reads {time.time() - t0:.2f}s")
+        log_module(log, "merge_reads", time.time() - t0)
         if opts.checkpoint_merged and not reloaded_merged:
             asm.dump_merged_reads(merged_ckpt)
             log.info("[checkpoint] wrote reads-merged.fastq.gz")
@@ -160,7 +188,11 @@ def run_pipeline(opts: Options) -> Assembler:
                 profiled = True
             else:
                 asm.run_round(k)
-            log.info(f"[module] contigging k={k} {time.time() - t0:.2f}s")
+            log_module(log, f"contigging k={k}", time.time() - t0)
+            if os.environ.get("MHM2_TPU_TEST_CRASH_ROUND") == str(k):
+                # fault injection for supervisor tests: die hard AFTER the
+                # round's checkpoint is on disk (launcher.py auto-resume)
+                os.kill(os.getpid(), 9)
 
         if not opts.post_asm_only:
             asm.dump_contigs(os.path.join(out_dir, "final_assembly.fasta"))
@@ -189,7 +221,7 @@ def run_pipeline(opts: Options) -> Assembler:
             )
             log.info("post-asm-align timings: " + ", ".join(
                 f"{n} {v:.2f}s" for n, v in tm.items() if n.endswith("_s")))
-            log.info(f"[module] post_asm_align {time.time() - t0:.2f}s")
+            log_module(log, "post_asm_align", time.time() - t0)
         asm.print_stats()
         log.info("Finished")
     finally:
@@ -198,7 +230,23 @@ def run_pipeline(opts: Options) -> Assembler:
 
 
 def main(argv=None):
-    run_pipeline(parse_args(argv))
+    opts = parse_args(argv)
+    # multi-process launch (reference mhm2.py builds the upcxx-run spawn,
+    # src/mhm2.py:446-466): joins the process group when the launcher
+    # exports the rendezvous env vars; scheduler env (SLURM/MPI/PBS/LSF,
+    # mhm2.py:107-250) fills them when they are absent
+    from .launcher import detect_scheduler_env
+
+    sched = detect_scheduler_env()
+    if sched:
+        os.environ.update(sched)
+    nprocs = os.environ.get("MHM2_TPU_NUM_PROCS")
+    if nprocs:
+        from .parallel.multihost import init_multihost
+
+        init_multihost(os.environ["MHM2_TPU_COORDINATOR"], int(nprocs),
+                       int(os.environ["MHM2_TPU_PROC_ID"]), device=opts.device)
+    run_pipeline(opts)
     return 0
 
 

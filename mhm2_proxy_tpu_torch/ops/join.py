@@ -138,7 +138,7 @@ def _answers(lib, n_queries: int, dtype, dev):
     stages (dest, answer) pairs and writes every answer itself."""
     n = lib.mhm2_join_scratch_bytes(n_queries, torch.empty((), dtype=dtype).element_size())
     if n < 0:
-        raise ValueError(f"join kernel: {n_queries} queries are past its 512 staging buckets")
+        raise ValueError(f"join kernel: {n_queries} queries; it takes fewer than 2^31")
     ans = (torch.zeros if n == 0 else torch.empty)((n_queries,), dtype=dtype, device=dev)
     return ans, torch.empty((n,), dtype=torch.uint8, device=dev)
 

@@ -1,9 +1,12 @@
-"""Sharded counting and lookup (port of mhm2_proxy_tpu/parallel on one
-process): the flat layout, and the (hosts, devices) layout with the
-hierarchical two-stage exchange."""
+"""Sharded counting and lookup (port of mhm2_proxy_tpu/parallel): the flat
+layout, the (hosts, devices) layout with the hierarchical two-stage
+exchange, and runs over several processes (torch.distributed, comm.py)."""
 
-from .multihost import HierarchicalCounter
-from .sharded import ShardedCounter, ShardedTable, all_to_all, sharded_lookup
+from .comm import all_to_all
+from .multihost import (HierarchicalCounter, check_read_id_disjointness, host_byte_ranges,
+                        init_multihost, min_sum_max, write_fasta_multihost)
+from .sharded import ShardedCounter, ShardedTable, sharded_lookup
 
 __all__ = ["HierarchicalCounter", "ShardedCounter", "ShardedTable", "all_to_all",
-           "sharded_lookup"]
+           "check_read_id_disjointness", "host_byte_ranges", "init_multihost", "min_sum_max",
+           "sharded_lookup", "write_fasta_multihost"]

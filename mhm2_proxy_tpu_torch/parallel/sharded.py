@@ -1,5 +1,5 @@
 """Sharded k-mer counting and cross-shard lookup (port of
-mhm2_proxy_tpu/parallel/sharded.py, on one process).
+mhm2_proxy_tpu/parallel/sharded.py).
 
 The reference's routed all-to-all (ThreeTierAggrStore, routed by minimizer
 hash, kmer_dht.cpp:193-196) is a bulk-synchronous exchange here:
@@ -11,12 +11,15 @@ hash, kmer_dht.cpp:193-196) is a bulk-synchronous exchange here:
   destination expands (supermers), sorts and reduces what it received into
   a split run of its LSM.
 
-Every global tensor has a leading shard axis (S, ...), with all S shards on
-the run's one device, and all_to_all is the one place where shards exchange
-data. A shard's local work runs shard by shard through the single-device
-functions of ops/count.py and kcount/kmer_store.py. Lookups route the same
-way there and back (sharded_lookup). parallel/multihost.py stages the same
-exchange in two hops over an (H, D) layout of the shards.
+Every per-shard tensor has a leading axis over the rank's D = S / W shards
+(W ranks, parallel/comm.py; all S shards on the one device of a world of
+one), and comm.all_to_all is the one place where shards exchange data.
+Every host value that sets a shape or a loop (bucket caps, trims, spill
+rounds, retries) is global, so the ranks' buckets line up. A shard's local
+work runs shard by shard through the single-device functions of
+ops/count.py and kcount/kmer_store.py. Lookups route the same way there and
+back (sharded_lookup). parallel/multihost.py stages the same exchange in two
+hops over an (H, D) layout of the shards.
 """
 
 from __future__ import annotations
@@ -37,13 +40,8 @@ from ..ops.scan import group_sums_scan_lanes
 from ..ops.supermer import SMAX, build_supermers, expand_supermers, record_kmers, supermer_layout
 from ..ops.u32 import ONES, lexsort_perm, narrow, u32, widen
 from ..ops.u64 import umod
-
-
-def all_to_all(buckets):
-    """(S_src, S_dst, cap, R) -> (S_dst, S_src, cap, R): slot (src, dst) of
-    every source reaches destination dst. All shards share one device, so
-    it is a transpose."""
-    return buckets.transpose(0, 1).contiguous()
+from . import comm
+from .comm import all_to_all
 
 
 def owner_shards(words, k: int, n_shards: int):
@@ -69,7 +67,8 @@ def _bucketize(payload, target, valid, n_shards: int, cap: int):
     (the payload sorted by target, the target, the leftover mask) for a spill
     round, as the reference's aggregating stores backpressure rather than
     drop (flat_aggr_store.hpp:41-72). Returns (buckets (S_src, n_shards,
-    cap, R), n_overflow (S_src,), leftovers)."""
+    cap, R), n_overflow (S_src,), leftovers, fill (S_src, n_shards): the
+    rows each bucket holds, in a prefix of its slots)."""
     S_src, N, R = payload.shape
     dev = payload.device
     key = torch.where(valid, target.to(torch.int64), n_shards)
@@ -86,7 +85,9 @@ def _bucketize(payload, target, valid, n_shards: int, cap: int):
     del dest, ok
     left_mask = (t_s < n_shards) & (pos >= cap)
     left_target = torch.where(left_mask, t_s, n_shards).to(torch.int32)
-    return out.view(S_src, n_shards, cap, R), left_mask.sum(1), (p_s, left_target, left_mask)
+    fill = (start[:, 1:] - start[:, :-1]).clamp(max=cap)
+    return (out.view(S_src, n_shards, cap, R), left_mask.sum(1), (p_s, left_target, left_mask),
+            fill)
 
 
 def _presum_duplicates(payload, target, valid, count_of, with_count, mode: str):
@@ -198,8 +199,9 @@ def _record_fns(k: int, n_route: int, use_supermers: bool, ctg_mode: bool):
             S, M, _R = recv.shape
             n = record_kmers(recv.reshape(-1, R), k, SMAX).view(S, M)
             live = n > 0
-            need = C.pow2_rows(int(n.sum(1).max()))
-            M_e = min(M, max(int(live.sum(1).max()), -(-need // per_record), 1))
+            n_max, live_max = comm.all_max(int(n.sum(1).max()), int(live.sum(1).max()))
+            need = C.pow2_rows(n_max)
+            M_e = min(M, max(live_max, -(-need // per_record), 1))
 
             def one(rows, keep):
                 sel = torch.zeros((M_e, R), dtype=rows.dtype, device=rows.device)
@@ -257,19 +259,24 @@ def _unpack_records(payload, W: int):
 
 
 class ShardedCounter:
-    """k-mer counting over S shards on one device: one count store per shard,
-    raw k-mer records or supermers routed by minimizer hash (reference
-    ShardedCounter, sharded.py:252-575). Read-pass runs are split into
-    a multi part and a compact singleton part (the GQF analog,
-    kcount-gpu/gqf.hpp:358-378) and merge LSM-style; every shard's run has
-    the same row count, the pow2 of the fullest shard's occupancy."""
+    """k-mer counting over S shards: one count store per shard, raw k-mer
+    records or supermers routed by minimizer hash (reference ShardedCounter,
+    sharded.py:252-575). A rank holds D = S / W of them (n_local, from
+    shard0 on). Read-pass runs are split into a multi part and a compact
+    singleton part (the GQF analog, kcount-gpu/gqf.hpp:358-378) and merge
+    LSM-style; every shard's run has the same row count, the pow2 of the
+    fullest shard's occupancy over all ranks."""
 
     def __init__(self, k: int, n_shards: int, dmin_thres: int = 2,
                  bucket_cap: int | None = None, device="cuda", use_supermers: bool = False):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if n_shards % comm.world():
+            raise ValueError(f"{n_shards} shards do not divide over {comm.world()} ranks")
         self.k = k
         self.S = n_shards
+        self.n_local = n_shards // comm.world()
+        self.shard0 = comm.rank() * self.n_local
         self.W = words32_for_k(k)
         self.dmin_thres = dmin_thres
         self.bucket_cap = bucket_cap
@@ -296,8 +303,9 @@ class ShardedCounter:
         self.stat_collapsed = 0
 
     def add_reads_block(self, codes, qual_ok, lens):
-        """codes (S*B, L) uint8, qual_ok (S*B, L) bool, lens (S*B,) numpy
-        arrays: rows [s*B, (s+1)*B) are source shard s's reads."""
+        """codes (D*B, L) uint8, qual_ok (D*B, L) bool, lens (D*B,) numpy
+        arrays: rows [s*B, (s+1)*B) are the reads of the rank's source shard
+        s; every rank passes a block of the same shape."""
         self._add_block(codes, qual_ok, lens, None)
 
     def add_ctgs_block(self, codes, lens, depths):
@@ -307,11 +315,13 @@ class ShardedCounter:
 
     def _add_block(self, codes, qual_ok, lens, depths):
         ctg_mode = depths is not None
-        S, k = self.S, self.k
+        S, D, k = self.S, self.n_local, self.k
         SB, L = np.asarray(codes).shape
-        if SB % S:
-            raise ValueError(f"a block's {SB} rows do not divide over {S} shards")
-        B, P = SB // S, L - k + 1
+        if SB % D:
+            raise ValueError(f"a block's {SB} rows do not divide over {D} shards")
+        if comm.all_max(SB, L, -SB, -L) != [SB, L, -SB, -L]:
+            raise ValueError(f"the ranks' blocks differ in shape (this rank's: {SB} x {L})")
+        B, P = SB // D, L - k + 1
         # the cap is in k-mers; supermers convert it to records (reference
         # sharded.py:421-430). An undersized cap costs spill rounds, never
         # correctness
@@ -325,7 +335,7 @@ class ShardedCounter:
         to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
         payload, target, valid, n_kmers = fns.make_records(
             to_dev(codes), to_dev(np.asarray(qual_ok, bool)), to_dev(np.asarray(lens, np.int32)),
-            to_dev(depths) if ctg_mode else None, S)
+            to_dev(depths) if ctg_mode else None, D)
         payload, target, valid, n_pre = _presum_duplicates(
             payload, target, valid, fns.count_of, fns.with_count, fns.mode)
         n_sent, n_over, n_comb, left = self._exchange(payload, target, valid, cap, fns)
@@ -333,18 +343,18 @@ class ShardedCounter:
         del payload, target, valid
         # spill rounds: re-exchange the overflowed rows until all are placed
         # (lossless under any skew: every round ships cap rows per over-full
-        # destination)
-        while n_over > 0:
+        # destination), every rank while any rank has some
+        while comm.all_sum(n_over) > 0:
             self.spill_rounds += 1
             n_sent, n_over, n_comb, left = self._exchange(*left, cap, fns)
             self._account(0, n_sent, n_over, n_comb)
 
     def _route(self, payload, target, valid, cap: int, fns: RecordFns):
-        """Bucketize + all_to_all: returns (what each shard received (S, S *
-        cap, R), rows sent, rows left over, rows collapsed on the way, the
-        leftovers)."""
-        buckets, n_over, left = _bucketize(payload, target, valid, self.S, cap)
-        recv = all_to_all(buckets).view(self.S, self.S * cap, fns.R)
+        """Bucketize + all_to_all: returns (what each local shard received
+        (D, S * cap, R), rows sent, rows left over, rows collapsed on the
+        way, the leftovers)."""
+        buckets, n_over, left, fill = _bucketize(payload, target, valid, self.S, cap)
+        recv = all_to_all(buckets, fill)[0].view(self.n_local, self.S * cap, fns.R)
         n_over = int(n_over.sum())
         return recv, int(valid.sum()) - n_over, n_over, 0, left
 
@@ -388,8 +398,9 @@ class ShardedCounter:
         most `rows` (default: the run's own rows; a supermer receive passes
         the reference's, which expands every received record)."""
         m_w, m_c, m_l4, m_r4, nm, s_w, s_e, ns = run
-        pm = min(C.pow2_rows(int(nm.max())), rows or m_w.shape[1])
-        ps = min(C.pow2_rows(int(ns.max())), rows or s_w.shape[1])
+        nm_max, ns_max = comm.all_max(int(nm.max()), int(ns.max()))
+        pm = min(C.pow2_rows(nm_max), rows or m_w.shape[1])
+        ps = min(C.pow2_rows(ns_max), rows or s_w.shape[1])
         if pm > m_w.shape[1] or ps > s_w.shape[1]:
             raise RuntimeError(f"a split run of {m_w.shape[1]} / {s_w.shape[1]} rows cut "
                                f"to {pm} / {ps}")
@@ -425,7 +436,7 @@ class ShardedCounter:
         ids in the stitch. Tables are the same either way, and the table's
         bound_rows keeps the reference's row count for the stitch's round
         bound."""
-        P = min(C.pow2_rows(int(agg[4].max())), agg[0].shape[1])
+        P = min(C.pow2_rows(comm.all_max(int(agg[4].max()))), agg[0].shape[1])
         return tuple(x[:, :P].contiguous() for x in agg[:4]) + (agg[4],)
 
     def _merge_ctg(self, a, b):
@@ -451,7 +462,7 @@ class ShardedCounter:
                                 *a[:4], *a[5:8])
             del a
         else:
-            S, W, dev = self.S, self.W, self.device
+            S, W, dev = self.n_local, self.W, self.device
             merged = (torch.full((S, 1, W), ONES, dtype=torch.int32, device=dev),
                       torch.zeros((S, 1), dtype=torch.int32, device=dev),
                       torch.zeros((S, 1, 4), dtype=torch.int32, device=dev),
@@ -461,37 +472,47 @@ class ShardedCounter:
             b = self.ctg_runs.pop()
             a = self.ctg_runs.pop()
             self.ctg_runs.append(self._merge_ctg(a, b))
+        # global: the row counts follow from global trims and bucket shapes
         bound_rows = merged[0].shape[1] + self.ctg_recv_rows
         if self.ctg_runs:
             c = self.ctg_runs.pop()
             merged = _per_shard(lambda *x: _apply_ctg_rules(*x, self.dmin_thres), *merged, *c)
             del c
         out = _per_shard(lambda *x: C.finalize_table(*x, dmin_thres=self.dmin_thres), *merged)
-        return ShardedTable(self.k, *out, bound_rows=bound_rows)
+        return ShardedTable(self.k, *out, bound_rows=bound_rows, n_shards=self.S,
+                            shard0=self.shard0)
 
 
 @dataclasses.dataclass
 class ShardedTable:
-    """Per-shard finalized tables, (S, T, ...) with one row count T: shard s
-    holds the k-mers whose minimizer hashes to s, lexsorted in a dense
-    prefix of n[s] rows."""
+    """Per-shard finalized tables of the rank's D shards, (D, T, ...) with
+    one row count T on every rank: global shard shard0 + s holds the k-mers
+    whose minimizer hashes to it, lexsorted in a dense prefix of n[s] rows."""
 
     k: int
-    words: torch.Tensor  # (S, T, W) int32 (u32 bits)
-    count: torch.Tensor  # (S, T) int32
-    left: torch.Tensor  # (S, T) uint8 ext call codes
-    right: torch.Tensor  # (S, T) uint8
-    n: torch.Tensor  # (S,) int32
+    words: torch.Tensor  # (D, T, W) int32 (u32 bits)
+    count: torch.Tensor  # (D, T) int32
+    left: torch.Tensor  # (D, T) uint8 ext call codes
+    right: torch.Tensor  # (D, T) uint8
+    n: torch.Tensor  # (D,) int32
     # the row count of the reference's table for the same input (its contig
     # runs keep every received row); the stitch's round bound comes from it
     bound_rows: int | None = None
+    n_shards: int | None = None  # S over all ranks (default: D)
+    shard0: int = 0  # the global id of local shard 0
 
     def __post_init__(self):
         if self.bound_rows is None:
             self.bound_rows = self.words.shape[1]
+        if self.n_shards is None:
+            self.n_shards = self.words.shape[0]
 
     @property
     def S(self) -> int:
+        return self.n_shards
+
+    @property
+    def n_local(self) -> int:
         return self.words.shape[0]
 
     @classmethod
@@ -506,18 +527,20 @@ class ShardedTable:
 
     def shard_tables(self) -> list[FinalTable]:
         return [FinalTable(self.k, self.words[s], self.count[s], self.left[s], self.right[s],
-                           self.n[s]) for s in range(self.S)]
+                           self.n[s]) for s in range(self.n_local)]
 
 
 def sharded_lookup(table: ShardedTable, query_words, query_valid, cap: int | None = None):
     """Cross-shard batched point lookup (reference sharded.py:602-705).
 
-    query_words (S, Q, W): each source shard's canonical k-mer queries,
-    query_valid (S, Q) bool. Returns (found bool, count int32, left uint8,
-    right uint8, owner row int32), each (S, Q), aligned with the queries.
-    A bucket overflow retries at doubled capacity until every query is
-    answered (the reference's aggregating stores never drop either)."""
-    S, Q, _W = query_words.shape
+    query_words (D, Q, W): each local source shard's canonical k-mer
+    queries, query_valid (D, Q) bool. Returns (found bool, count int32, left
+    uint8, right uint8, owner row int32), each (D, Q), aligned with the
+    queries. A bucket overflow on any rank retries at doubled capacity on
+    every rank until every query is answered (the reference's aggregating
+    stores never drop either)."""
+    S = table.S
+    Q = comm.all_max(query_words.shape[1])
     max_cap = S * Q  # every query routed to one shard
     cap = cap or max(64, 2 * Q // max(S, 1) + 64)
     while True:
@@ -532,20 +555,22 @@ def sharded_lookup(table: ShardedTable, query_words, query_valid, cap: int | Non
 def _sharded_lookup_once(table: ShardedTable, query_words, query_valid, cap: int):
     """One routed lookup at bucket capacity cap; None if a bucket overflowed
     (a dropped query would read as not found and split a contig)."""
-    S, Q, W = query_words.shape
+    D, Q, W = query_words.shape
+    S = table.S
     dev = query_words.device
     target = owner_shards(query_words, table.k, S)
-    qid = torch.arange(Q, dtype=torch.int32, device=dev).expand(S, Q)
+    qid = torch.arange(Q, dtype=torch.int32, device=dev).expand(D, Q)
     payload = torch.cat([query_words, qid[..., None], query_valid.to(torch.int32)[..., None]],
                         dim=2)
-    buckets, n_over, _left = _bucketize(payload, target, query_valid, S, cap)
+    buckets, n_over, _left, fill = _bucketize(payload, target, query_valid, S, cap)
     del payload, target
-    if int(n_over.sum()):
+    if comm.all_sum(int(n_over.sum())):
         return None
-    rq = all_to_all(buckets).view(S, S * cap, W + 2)
+    rq, fill = all_to_all(buckets, fill)
+    rq = rq.view(D, S * cap, W + 2)
     del buckets
     back = []
-    for s in range(S):
+    for s in range(D):
         r_words, r_qid, r_valid = rq[s, :, :W], rq[s, :, W], rq[s, :, W + 1] != 0
         idx, found = table_lookup(table.words[s], table.n[s], r_words)
         found = found & r_valid
@@ -557,10 +582,10 @@ def _sharded_lookup_once(table: ShardedTable, query_words, query_valid, cap: int
         ans = torch.where(r_valid, ans, 0).to(torch.int32)
         back.append(torch.stack([ans, idx, r_qid, r_valid.to(torch.int32)], dim=-1))
     # slot (s, c) of each destination returns to source shard s
-    ret = all_to_all(torch.stack(back).view(S, S, cap, 4)).view(S, S * cap, 4)
+    ret = all_to_all(torch.stack(back).view(D, S, cap, 4), fill)[0].view(D, S * cap, 4)
     del back, rq
     dest = torch.where(ret[..., 3] > 0, ret[..., 2].long(), Q)
-    at_query = lambda v: torch.zeros((S, Q + 1), dtype=torch.int32, device=dev).scatter_(  # noqa: E731
+    at_query = lambda v: torch.zeros((D, Q + 1), dtype=torch.int32, device=dev).scatter_(  # noqa: E731
         1, dest, v)[:, :Q]
     ans, oidx = at_query(ret[..., 0]), at_query(ret[..., 1])
     a = ans.to(torch.int64)

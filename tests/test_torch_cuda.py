@@ -654,6 +654,35 @@ def test_join_staged_scatter(cuda, sep, n_q):
     assert 0 < int((want != 0).sum()) < len(want)
 
 
+def test_join_past_2_28_queries(cuda):
+    """270,000,000 queries in the separate-lane layout, past 2^28 (512
+    staging buckets of 2^19 u64 answers): the staging runs in two passes of
+    query-id windows, the second partial, and every answer equals the plain
+    version's on the card (~20 GB)."""
+    from mhm2_proxy_tpu_torch.ops.u32 import narrow
+
+    n_runs = 90_000_000
+    M = 4 * n_runs
+    Q = M - n_runs
+    assert Q > 1 << 28 and kernels.lib().mhm2_join_scratch_bytes(Q, 8) > 0
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(28)
+    row = torch.arange(M, device=cuda)
+    is_t = row % 4 == 0  # each run of 4 equal keys: one table row, 3 queries
+    src = torch.where(is_t, row // 4, 0)
+    src[~is_t] = torch.randperm(Q, device=cuda, generator=gen) | join.SEP_QUERY_BIT
+    pay = torch.randint(-(1 << 31), 1 << 31, (M,), dtype=torch.int32, device=cuda,
+                        generator=gen)
+    lanes = ((row // 4).to(torch.int32), narrow(src), pay)
+    del row, is_t, src
+    n_valid = int(0.8 * n_runs)
+    want = join._propagate_sep_plain(lanes, n_valid, 1, Q, 32)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    got = _launched("join", lambda: join.propagate_answers_sep(lanes, nv, 1, Q, 32))
+    assert torch.equal(got, want)
+    assert 0 < int((want != 0).sum()) < Q
+
+
 @pytest.mark.parametrize("sep", [False, True])
 def test_join_staged_repeated_query_ids_raise(cuda, sep):
     """Staged answers (past one 4 MB bucket) whose query ids all repeat one

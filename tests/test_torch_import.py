@@ -19,7 +19,8 @@ def test_port_imports_no_jax():
         "from mhm2_proxy_tpu_torch.models import assembler, post_asm\n"
         "from mhm2_proxy_tpu_torch.ops import (bitkmer, compact, count, extract, finalize,\n"
         "    join, kernels, lookup, minimizer, scan, sort, ssw, u32, u64, _build)\n"
-        "from mhm2_proxy_tpu_torch.parallel import sharded\n"
+        "from mhm2_proxy_tpu_torch.parallel import comm, multihost, sharded, worker\n"
+        "from mhm2_proxy_tpu_torch import launcher, parse_run_log\n"
         "from mhm2_proxy_tpu_torch.dbjg import traverse_sharded, stitch_sharded\n"
         "from mhm2_proxy_tpu_torch.io import merge, native, gfa, stream\n"
         "from mhm2_proxy_tpu_torch.utils import memlog\n"
@@ -106,11 +107,14 @@ def test_unported_paths_raise():
 # the port's copies of framework-free host modules of the JAX package: the
 # verbatim ones (0 differing lines) and the adapted ones with the number of
 # lines that differ (the --device option and prog name, the citation of the
-# reference's source, the logger's file name)
+# reference's source, the logger's file name; the launcher's child module,
+# its two torch out-of-memory markers and torch.distributed; the parser's
+# log name and its note on the multi-process [module] line)
 COPIED_MODULES = {
     "io/fastq.py": 0, "io/stream.py": 0, "io/reads.py": 0, "io/native.py": 0,
     "io/fasta.py": 0, "utils/synth.py": 0,
     "constants.py": 2, "options.py": 25, "io/gfa.py": 7, "utils/logger.py": 8,
+    "launcher.py": 8, "parse_run_log.py": 7,
 }
 
 

@@ -90,34 +90,84 @@ def test_counter_equals_reference(case):
         assert port.stat_collapsed > 0
 
 
-def test_hierarchical_lookup_and_traversal_equal_reference():
-    """Lookups over the 2 x 4 table and the sharded traversal equal the
-    reference's on its own 2 x 4 table (contigs, stitch rounds)."""
+@pytest.fixture(scope="module")
+def ref_2x4():
+    """The reference's 2 x 4 run (tests/test_multihost.py's mesh2d) on 96
+    reads: the block, the table, lookups of each shard's rows rolled by one
+    shard, and the sharded traversal's contigs and stats."""
     k = 21
     rng = np.random.default_rng(42)
     genome = "".join(rng.choice(list("ACGT"), size=600))
     reads = [(genome[s : s + 64], Q40 * 64) for s in rng.integers(0, 600 - 64, 96)]
     blk = reads_to_block(reads, B=96, L=64)
     ref = RefHier(k, make_host_mesh(2, 4), bucket_cap=4096)
-    port = HierarchicalCounter(k, (2, 4), bucket_cap=4096, device="cpu")
     ref.add_reads_block(*blk)
-    port.add_reads_block(*blk)
-    want_t, got_t = ref.finalize(), port.finalize()
+    want_t = ref.finalize()
     n = np.asarray(want_t.n)
     Q = int(n.max())
     qw = np.roll(np.asarray(want_t.words[:, :Q]), 1, axis=0)
     qv = np.roll(np.arange(Q)[None, :] < n[:, None], 1, axis=0)
-    want = ref_lookup(want_t, jnp.asarray(qw), jnp.asarray(qv))
+    want = [np.asarray(a) for a in ref_lookup(want_t, jnp.asarray(qw), jnp.asarray(qv))]
+    want_stats = {}
+    want_c = ref_traverse(want_t, k, stats=want_stats)
+    return dict(k=k, blk=blk, table=want_t, qw=qw, qv=qv, answers=want, contigs=want_c,
+                stats=want_stats)
+
+
+def test_hierarchical_lookup_and_traversal_equal_reference(ref_2x4):
+    """Lookups over the 2 x 4 table and the sharded traversal equal the
+    reference's on its own 2 x 4 table (contigs, stitch rounds)."""
+    k, blk, qw, qv = ref_2x4["k"], ref_2x4["blk"], ref_2x4["qw"], ref_2x4["qv"]
+    port = HierarchicalCounter(k, (2, 4), bucket_cap=4096, device="cpu")
+    port.add_reads_block(*blk)
+    got_t = port.finalize()
     got = sharded_lookup(got_t, torch.from_numpy(qw.view(np.int32).copy()),
                          torch.from_numpy(qv.copy()))
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(got, ref_2x4["answers"]):
+        np.testing.assert_array_equal(g.numpy(), w)
     assert got[0].numpy()[qv].all()
-    want_stats, got_stats = {}, {}
-    want_c = ref_traverse(want_t, k, stats=want_stats)
+    got_stats = {}
     got_c = traverse_debruijn_graph_sharded(got_t, k, stats=got_stats)
-    assert sorted(got_c) == sorted(want_c) and len(got_c) > 0
-    assert got_stats["stitch_rounds"] == want_stats["stitch_rounds"]
+    assert sorted(got_c) == sorted(ref_2x4["contigs"]) and len(got_c) > 0
+    assert got_stats["stitch_rounds"] == ref_2x4["stats"]["stitch_rounds"]
+
+
+@pytest.mark.parametrize("bucket_cap", [4096, 64])
+def test_two_processes_equal_reference(tmp_path, ref_2x4, bucket_cap):
+    """Two spawned processes over gloo, 4 shards each (the 2 x 4 layout of
+    tests/test_multihost.py's mesh2d): each rank's shard tables, its shards'
+    lookup answers and both ranks' contigs and stitch rounds equal the JAX
+    package's HierarchicalCounter on that mesh, at tolerance 0; at a bucket
+    cap of 64 k-mers the ranks run spill rounds together."""
+    import torch.multiprocessing as mp
+
+    from tests.test_torch_multiprocess import free_port
+    from torch_common import hierarchical_rank
+
+    H, D, k = 2, 4, ref_2x4["k"]
+    blk, want_t = ref_2x4["blk"], ref_2x4["table"]
+    inp = str(tmp_path / "block.npz")
+    np.savez(inp, codes=blk[0], qual_ok=blk[1], lens=blk[2], qw=ref_2x4["qw"].view(np.int32),
+             qv=ref_2x4["qv"])
+    out = str(tmp_path / "rank")
+    mp.spawn(hierarchical_rank, args=(H, free_port(), D, bucket_cap, k, inp, out), nprocs=H,
+             join=True)
+    tables = [np.asarray(x) for x in (want_t.words, want_t.count, want_t.left, want_t.right,
+                                      want_t.n)]
+    want_c = sorted(ref_2x4["contigs"])
+    for r in range(H):
+        got = np.load(f"{out}{r}.npz")
+        mine = slice(r * D, (r + 1) * D)
+        for name, w in zip(("count", "left", "right", "n"), tables[1:]):
+            np.testing.assert_array_equal(got[name], w[mine])
+        np.testing.assert_array_equal(got["words"].view(np.uint32), tables[0][mine])
+        assert int(got["bound_rows"]) == want_t.words.shape[1]
+        for i, w in enumerate(ref_2x4["answers"]):
+            np.testing.assert_array_equal(got[f"ans{i}"], w[mine])
+        res = json.load(open(f"{out}{r}.json"))
+        assert [tuple(c) for c in res["contigs"]] == want_c and len(want_c) > 0
+        assert res["stitch_rounds"] == ref_2x4["stats"]["stitch_rounds"]
+        assert res["spill_rounds"] > 0 if bucket_cap == 64 else res["spill_rounds"] == 0
 
 
 def _multichip_r05() -> dict:
@@ -142,3 +192,89 @@ def test_dryrun_multichip_analog_equals_multichip_r05():
     assert S.MULTICHIP_R05 == _multichip_r05()
     got = S.dryrun_multichip("cpu")
     assert got == S.MULTICHIP_R05
+
+
+@pytest.mark.parametrize("size,hosts", [(1000, 3), (7, 2), (1 << 40, 5)])
+def test_host_byte_ranges_equal_reference(size, hosts):
+    from mhm2_proxy_tpu.parallel import host_byte_ranges as ref_ranges
+    from mhm2_proxy_tpu_torch.parallel.multihost import host_byte_ranges
+
+    assert host_byte_ranges(size, hosts) == ref_ranges(size, hosts)
+
+
+def test_write_fasta_single_process_equals_reference(tmp_path):
+    """Two payloads written at their offsets from one process (the sizes
+    given), as tests/test_multihost.py writes them, byte-identical to the
+    reference's file."""
+    from mhm2_proxy_tpu.parallel import write_fasta_multihost as ref_write
+    from mhm2_proxy_tpu_torch.parallel.multihost import write_fasta_multihost
+
+    payloads = [b">Contig0 1.0\nACGT\n", b">Contig1 2.0\nGGTT\n"]
+    sizes = [len(p) for p in payloads]
+    for name, fn in (("ref", ref_write), ("port", write_fasta_multihost)):
+        for pid in (0, 1):  # rank 0 creates and sizes the file
+            assert fn(str(tmp_path / name), payloads[pid], pid, 2, sizes=sizes) == sum(sizes)
+    assert open(tmp_path / "port", "rb").read() == open(tmp_path / "ref", "rb").read()
+    assert open(tmp_path / "port", "rb").read() == b"".join(payloads)
+    # the sizes gathered (a world of one)
+    assert write_fasta_multihost(str(tmp_path / "one"), payloads[0], 0, 1) == sizes[0]
+    assert open(tmp_path / "one", "rb").read() == payloads[0]
+
+
+def test_min_sum_max_and_id_spans_single_process():
+    from mhm2_proxy_tpu.parallel import min_sum_max as ref_msm
+    from mhm2_proxy_tpu.parallel.multihost import check_read_id_disjointness as ref_check
+    from mhm2_proxy_tpu_torch.parallel.multihost import check_read_id_disjointness, min_sum_max
+
+    for v in (3.5, 0.0, 1e-9):
+        assert min_sum_max(v) == ref_msm(v) == dict(min=v, avg=v, max=v, n=1)
+    for span in ((0, 10), None):
+        assert check_read_id_disjointness(span) == ref_check(span)
+
+
+_LOCAL_VARS = ("MHM2_TPU_LOCAL_RANK", "MHM2_TPU_LOCAL_PROCS", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+               "OMPI_COMM_WORLD_LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_SIZE", "MPI_LOCALRANKID",
+               "MPI_LOCALNRANKS", "SLURM_LOCALID", "SLURM_TASKS_PER_NODE", "SLURM_NODEID")
+
+BACKEND_CASES = {
+    # name: (environment, process id, processes, cards a host, device, backend, device chosen)
+    "cpu": ({}, 1, 2, 4, "cpu", "gloo", "cpu"),
+    "one_host_shared_card": ({}, 1, 2, 1, "cuda", "gloo", "cuda:0"),
+    "one_host_own_cards": ({}, 1, 2, 2, "cuda", "nccl", "cuda:1"),
+    "hosts_of_one_card": ({"LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}, 3, 4, 1, "cuda",
+                          "nccl", "cuda:0"),
+    "slurm_two_a_node": ({"SLURM_LOCALID": "1", "SLURM_TASKS_PER_NODE": "2(x2)",
+                          "SLURM_NODEID": "1"}, 3, 4, 2, "cuda", "nccl", "cuda:1"),
+    "slurm_uneven_shared": ({"SLURM_LOCALID": "2", "SLURM_TASKS_PER_NODE": "2,3",
+                             "SLURM_NODEID": "1"}, 4, 5, 2, "cuda", "gloo", "cuda:0"),
+    "openmpi_four_a_node": ({"OMPI_COMM_WORLD_LOCAL_RANK": "1",
+                             "OMPI_COMM_WORLD_LOCAL_SIZE": "4"}, 5, 8, 4, "cuda", "nccl",
+                            "cuda:1"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BACKEND_CASES))
+def test_init_multihost_backend_rule(monkeypatch, case):
+    """init_multihost's backend and device from the host's own ranks (the
+    launcher's or scheduler's local rank and count) and its card count: nccl
+    on cuda:<local rank> when each of a host's ranks has a card, gloo when
+    they share one or run on the CPU. The process group and the cards are
+    faked."""
+    from mhm2_proxy_tpu_torch.parallel import multihost as M
+
+    env, pid, n, cards, device, backend, chosen = BACKEND_CASES[case]
+    for var in _LOCAL_VARS:
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    calls = []
+    monkeypatch.setattr(M.dist, "init_process_group", lambda *a, **kw: calls.append((a, kw)))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    dev = M.init_multihost("localhost:1", n, pid, device=device)
+    assert str(dev) == chosen
+    (args, kw), = calls
+    assert args == (backend,)
+    assert (kw["world_size"], kw["rank"]) == (n, pid)
+    assert kw.get("device_id") == (dev if backend == "nccl" else None)

@@ -28,3 +28,39 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def hierarchical_rank(rank, world, port, D, cap, k, inp, out):
+    """One process of a (world, D) run on the CPU over gloo, for
+    torch.multiprocessing.spawn: its shards' rows of the block in inp (an
+    .npz of codes, qual_ok, lens and the global (S, Q, W) lookup queries
+    qw / qv) through HierarchicalCounter, sharded_lookup of its shards'
+    queries and the sharded traversal; the results go to out + rank."""
+    import json
+
+    import numpy as np
+
+    from mhm2_proxy_tpu_torch.dbjg import traverse_debruijn_graph_sharded
+    from mhm2_proxy_tpu_torch.parallel import sharded_lookup
+    from mhm2_proxy_tpu_torch.parallel.multihost import HierarchicalCounter, init_multihost
+
+    torch.set_num_threads(1)
+    init_multihost(f"localhost:{port}", world, rank, device="cpu")
+    z = np.load(inp)
+    B = z["codes"].shape[0] // (world * D)
+    rows = slice(rank * D * B, (rank + 1) * D * B)
+    counter = HierarchicalCounter(k, (world, D), bucket_cap=cap, device="cpu")
+    counter.add_reads_block(z["codes"][rows], z["qual_ok"][rows], z["lens"][rows])
+    table = counter.finalize()
+    mine = slice(rank * D, (rank + 1) * D)
+    found = sharded_lookup(table, torch.from_numpy(z["qw"][mine].copy()),
+                           torch.from_numpy(z["qv"][mine].copy()))
+    stats = {}
+    contigs = traverse_debruijn_graph_sharded(table, k, stats=stats)
+    np.savez(f"{out}{rank}.npz", words=table.words.numpy(), count=table.count.numpy(),
+             left=table.left.numpy(), right=table.right.numpy(), n=table.n.numpy(),
+             bound_rows=table.bound_rows, **{f"ans{i}": a.numpy() for i, a in enumerate(found)})
+    with open(f"{out}{rank}.json", "w") as f:
+        json.dump(dict(contigs=contigs, stitch_rounds=stats["stitch_rounds"],
+                       spill_rounds=counter.spill_rounds), f)
+    torch.distributed.destroy_process_group()
