@@ -11,6 +11,8 @@
     python3 chip_smoke.py --only sharded [DIR]     # phase 8 alone, the minimizer metered
     python3 chip_smoke.py --only hosts [DIR]       # phase 9 alone, the supermer stage metered
     python3 chip_smoke.py --only multiproc [DIR]   # phase 10 alone (processes, one card)
+    python3 chip_smoke.py --only lookup [DIR]      # phase 2's lookup rows
+    python3 chip_smoke.py --only merge [DIR]       # phase 5m alone (the pair merge)
 
 (DIR: the checkout whose mhm2_proxy_tpu_torch to run, default this one, so
 that another tree, e.g. a parent commit unpacked beside it, is timed on the
@@ -37,7 +39,9 @@ Phases (any failure raises, and the script exits non-zero):
      the k = 21 edge join's shapes (fused lanes, separate lanes, and the
      ladder's all-ones mix) and at
      the k = 77 and 99 joins' (6 and 8 key lanes, 75,497,472 merged rows);
-     table_lookup on CUDA against the CPU at a 30M-row index; the count
+     table_lookup and table_join (the sort and join kernels) on CUDA
+     against the CPU at a 30M-row index and 327,680 queries, and rank_rows
+     (lower and upper) on a 30M-row table whose keys each appear twice; the count
      store + traversal on CUDA against the same on the CPU at
      k = 21, 33, 55, 63, 77, 99 (every instantiation of the kernels' templates),
      and at each k the split LSM on CUDA (every push collapsed, the cascade
@@ -89,6 +93,16 @@ Phases (any failure raises, and the script exits non-zero):
      sorted contig lists): states, paths emitted and kept, each stage's
      seconds, the bytes fetched, the stitch's peak device memory, the
      walker's seconds;
+  5m. the pair merge on the card (io/merge.py, the shortlist scan and the
+     dense rerun of overflowing rows) against the native merge on every pair
+     of phase 5's community in the CLI's blocks (every key equal, the
+     ambiguity counts summed): both merges' seconds (the card's by CUDA
+     events, copies included, and the copies alone), blocks and rows rerun
+     densely, the device peak; then an adversarial block (poly-A,
+     dinucleotide, triplet and N-rich repeats) that must overflow, where the
+     dense scan, the wrapper and the native merge agree; then the CI sample
+     through the CLI in a child process with MHM2_NO_NATIVE_MERGE=1: the
+     JAX package's FASTA digest and ci/good-synth-sample-k2133.txt;
   6. store-level equality on that community's reads plus contig windows cut
      from its genomes, at k = 33 (k = 77's separate payload runs the forced
      split LSM in phase 2):
@@ -1234,10 +1248,12 @@ def phase_ssw(record, gen):
 def phase_lookup(gen):
     """table_lookup (plain torch, no kernel) on CUDA against the CPU at a
     30M-row index with 327,680 queries (five seeds of a 65,536-read block),
-    half of them present."""
+    half of them present; table_join (the sort and join kernels) on the
+    same; and rank_rows, lower and upper, on a 30M-row table whose keys
+    each appear twice."""
     import torch
 
-    from mhm2_proxy_tpu_torch.ops import lookup
+    from mhm2_proxy_tpu_torch.ops import kernels, lookup
     from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
 
     T, Q = 30_000_000, 327_680
@@ -1257,6 +1273,46 @@ def phase_lookup(gen):
     log(f"[lookup] table_lookup {T} rows, {Q} queries: {int(found_h.sum())} found, CUDA "
         f"{ms:.3f} ms, CPU {cpu_s:.2f} s, CUDA == CPU: {same}")
     check(same and int(found_h.sum()) >= Q // 2, "table_lookup on CUDA differs from the CPU")
+    top = float((words[:, 0] < 0).float().mean())
+    # table_join: the sort kernel's merge of the sorted queries into the
+    # table, then the join kernel (fused lane: T < 2^25)
+    kernels.reset_launches()
+    run = lambda: lookup.table_join(words, T, qw)  # noqa: E731
+    idx, found = run()
+    launched = {k: v for k, v in kernels.launches().items() if v}
+    ms = cuda_ms(run)
+    t0 = time.perf_counter()
+    idx_h, found_h = lookup.table_join(words.cpu(), T, qw.cpu())
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(found.cpu(), found_h) and torch.equal(idx.cpu()[found_h], idx_h[found_h])
+    log(f"[lookup] table_join {T} rows ({top:.3f} with the top bit set), {Q} queries: "
+        f"{int(found_h.sum())} found, CUDA {ms:.3f} ms (launches {launched}), CPU "
+        f"{cpu_s:.2f} s, CUDA == CPU: {same}")
+    check(same and int(found_h.sum()) >= Q // 2 and set(launched) == {"sort", "join"},
+          "table_join on CUDA differs from the CPU or did not run the sort and join kernels")
+    # rank_rows on a table whose every key appears twice, queries drawn
+    # from it, random and all-ones
+    dup = words[: T // 2].repeat_interleave(2, 0)
+    del words
+    qd = torch.cat([dup[torch.randint(0, T, (Q // 2,), device="cuda", generator=gen)],
+                    torch.randint(-2**31, 2**31, (Q - Q // 2 - 64, 2), dtype=torch.int32,
+                                  device="cuda", generator=gen),
+                    torch.full((64, 2), -1, dtype=torch.int32, device="cuda")])
+    ranks = {}
+    for upper in (False, True):
+        run = lambda: lookup.rank_rows(dup, T, qd, upper=upper)  # noqa: E731
+        ranks[upper] = run()
+        ms = cuda_ms(run)
+        t0 = time.perf_counter()
+        host = lookup.rank_rows(dup.cpu(), T, qd.cpu(), upper=upper)
+        cpu_s = time.perf_counter() - t0
+        same = torch.equal(ranks[upper].cpu(), host)
+        log(f"[lookup] rank_rows upper={upper} {T} rows (each key twice), {Q} queries: CUDA "
+            f"{ms:.3f} ms, CPU {cpu_s:.2f} s, CUDA == CPU: {same}")
+        check(same, f"rank_rows(upper={upper}) on CUDA differs from the CPU")
+    span = (ranks[True] - ranks[False]).cpu()
+    check(bool((span[: Q // 2] == 2).all()) and bool((ranks[False][-64:] == T).all()),
+          "rank_rows: a duplicated key does not span 2 rows, or all-ones ranks below T")
 
 
 def phase_callers(seed: int = 20261016):
@@ -1591,14 +1647,8 @@ def ci_sample(work):
     return fq
 
 
-def phase_ci(work):
-    fq = ci_sample(work)
-    out = os.path.join(work, "ci_run")
-    wall, counts, _ = run_cli(fq, out, (21, 33), POST_ASM)
-    fa = os.path.join(out, "final_assembly.fasta")
-    fdig = sha256(fa)
-    log(f"[ci] wall {wall:.2f} s, launches {counts}, final_assembly.fasta sha256 {fdig}")
-    check(fdig == CI_FASTA_SHA256, "final_assembly.fasta differs from the JAX package's")
+def ci_metrics_gate(fa):
+    """The CI sample's assembly metrics equal ci/good-synth-sample-k2133.txt."""
     golden = {}
     for line in open(os.path.join(ROOT, "ci", "good-synth-sample-k2133.txt")):
         m = re.match(r"(\w+) = ([\d.]+)", line.strip())
@@ -1608,6 +1658,17 @@ def phase_ci(work):
     for key, v in got.items():
         check(v == golden[key], f"{key}: {v} vs golden {golden[key]}")
     log(f"[ci] metrics {got} match ci/good-synth-sample-k2133.txt")
+
+
+def phase_ci(work):
+    fq = ci_sample(work)
+    out = os.path.join(work, "ci_run")
+    wall, counts, _ = run_cli(fq, out, (21, 33), POST_ASM)
+    fa = os.path.join(out, "final_assembly.fasta")
+    fdig = sha256(fa)
+    log(f"[ci] wall {wall:.2f} s, launches {counts}, final_assembly.fasta sha256 {fdig}")
+    check(fdig == CI_FASTA_SHA256, "final_assembly.fasta differs from the JAX package's")
+    ci_metrics_gate(fa)
     check(all(counts[k] > 0 for k in K21_33_KERNELS + ("ssw",)), counts)
     sam = os.path.join(out, "final_assembly.sam")
     dep = os.path.join(out, "final_assembly_depths.tsv")
@@ -2275,6 +2336,170 @@ def phase_multiproc(work, fq):
     return {name: sum(r["launches"][name] for r in reports) for name in reports[0]["launches"]}
 
 
+MERGE_KEYS = ("merged", "m_len", "overlap", "m_codes", "m_quals", "quals1_z", "quals2_z")
+
+
+def merge_blocks(fq):
+    """The pair blocks that the CLI's interleaved ingest merges
+    (Assembler.load_reads on CUDA): (c1, q1, l1, c2, q2, l2) of every block
+    of 2 x 131,072 reads."""
+    import numpy as np
+
+    from mhm2_proxy_tpu_torch.io.stream import stream_fastq_blocks
+    from mhm2_proxy_tpu_torch.models.assembler import AssemblerConfig, resolve_block_reads
+
+    cfg = AssemblerConfig()
+    B = resolve_block_reads(cfg.block_reads, "cuda")
+    for c, q, l, _n in stream_fastq_blocks(fq, 2 * B, pad_quantum=cfg.pad_len_quantum,
+                                           qual_offset=cfg.qual_offset,
+                                           chunk_bytes=cfg.chunk_bytes):
+        yield tuple(np.ascontiguousarray(x) for x in (c[0::2], q[0::2], l[0::2],
+                                                      c[1::2], q[1::2], l[1::2]))
+
+
+def same_merge(a, b) -> bool:
+    """Every per-pair key and the ambiguity count equal (tolerance 0)."""
+    import numpy as np
+
+    return (all(np.array_equal(a[k], b[k]) for k in MERGE_KEYS)
+            and int(a["n_ambiguous"]) == int(b["n_ambiguous"]))
+
+
+def adversarial_block(blk, rows: int = 8192, every: int = 16):
+    """The first `rows` pairs of a block with every `every`-th replaced by a
+    low-complexity pair that passes the merge's prefilter at many shifts
+    (tests/test_merge.py's poly-A and dinucleotide repeats, a triplet
+    repeat, an N-rich repeat and an all-N pair), 100 bp, quality 'F'."""
+    import numpy as np
+
+    c1, q1, l1, c2, q2, l2 = (np.array(x[:rows]) for x in blk)
+    kinds = [([0], [3]), ([0, 1], [2, 3]), ([0, 3], [0, 3]), ([1, 0, 2], [1, 3, 2]),
+             ([0, 1, 4, 2, 3], [0, 1, 4, 2, 3]), ([4], [4])]
+    for t, r in enumerate(range(0, rows, every)):
+        u1, u2 = kinds[t % len(kinds)]
+        n = 100 - 100 % len(u1)
+        for c, q, ln, unit in ((c1, q1, l1, u1), (c2, q2, l2, u2)):
+            c[r] = 4
+            c[r, :n] = np.resize(np.array(unit, np.uint8), n)
+            q[r] = 33
+            q[r, :n] = 70
+            ln[r] = n
+    return c1, q1, l1, c2, q2, l2
+
+
+def phase_merge(fq):
+    """The pair merge on the card against the native merge on every pair of
+    the 27 Mbp community (the CLI's blocks), then the adversarial block."""
+    import numpy as np
+    import torch
+
+    from mhm2_proxy_tpu_torch.io import merge, native
+
+    check(native.merge_available(), "the native merge library is not available")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    tot = dict(pairs=0, merged=0, ambig=0, blocks=0, dense_blocks=0, dense_rows=0,
+               native_s=0.0, device_ms=0.0, device_wall_s=0.0, h2d_ms=0.0, d2h_ms=0.0, peak=0)
+    first = None
+    t_phase = time.perf_counter()
+    for blk in merge_blocks(fq):
+        first = first or blk
+        t0 = time.perf_counter()
+        nat = merge.merge_reads_arrays(*blk, use_native=True)
+        tot["native_s"] += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st = {}
+        e0, e1 = ev(), ev()
+        t0 = time.perf_counter()
+        e0.record()
+        dev = merge.merge_reads_arrays(*blk, use_native=False, device="cuda", stats=st)
+        e1.record()
+        torch.cuda.synchronize()
+        tot["device_wall_s"] += time.perf_counter() - t0
+        tot["device_ms"] += e0.elapsed_time(e1)
+        tot["peak"] = max(tot["peak"], torch.cuda.max_memory_allocated() - base)
+        # the copies alone: the block in, the results out
+        e2, e3 = ev(), ev()
+        e0.record()
+        ins = [torch.from_numpy(x).to("cuda") for x in blk]
+        e1.record()
+        outs = [torch.from_numpy(np.asarray(dev[k])).to("cuda") for k in MERGE_KEYS]
+        e2.record()
+        host = [o.cpu() for o in outs]
+        e3.record()
+        torch.cuda.synchronize()
+        tot["h2d_ms"] += e0.elapsed_time(e1)
+        tot["d2h_ms"] += e2.elapsed_time(e3)
+        del ins, outs, host
+        check(same_merge(dev, nat), f"block {tot['blocks']}: the device merge differs from "
+              "the native merge")
+        tot["pairs"] += int(((blk[2] > 0) & (blk[5] > 0)).sum())
+        tot["merged"] += int(nat["merged"].sum())
+        tot["ambig"] += int(nat["n_ambiguous"])
+        tot["blocks"] += 1
+        tot["dense_blocks"] += st["dense_rows"] > 0
+        tot["dense_rows"] += st["dense_rows"]
+    L = first[0].shape[1]
+    log(f"[merge] {tot['pairs']} pairs in {tot['blocks']} blocks of {first[0].shape[0]} (L = "
+        f"{L}, {merge.chunk_rows(L)} rows a chunk): {tot['merged']} merged, "
+        f"{tot['ambig']} ambiguous; device == native on every key of every pair")
+    log(f"[merge] native {tot['native_s']:.3f} s (wall, {os.cpu_count()} threads); device "
+        f"{tot['device_ms'] / 1e3:.3f} s (CUDA events around merge_reads_arrays, copies "
+        f"included; wall {tot['device_wall_s']:.3f} s), of which the copies alone take "
+        f"{tot['h2d_ms'] / 1e3:.3f} s in and {tot['d2h_ms'] / 1e3:.3f} s out; "
+        f"{tot['dense_blocks']} blocks overflowed to the dense scan ({tot['dense_rows']} "
+        f"rows); device peak {tot['peak'] / 1e9:.3f} GB above the inputs")
+    check(tot["pairs"] > 1_000_000 and tot["merged"] > 0, tot)
+    # the adversarial block: the shortlist overflows, and the dense scan,
+    # the wrapper (shortlist + dense rerun) and the native merge agree
+    adv = adversarial_block(first)
+    args = [torch.from_numpy(x).to("cuda") for x in adv]
+    short = merge.merge_pairs_block(*args, scan="shortlist")
+    dense = {k: v.cpu().numpy() for k, v in merge.merge_pairs_block(*args, scan="dense").items()}
+    st = {}
+    wrapper = merge.merge_reads_arrays(*adv, use_native=False, device="cuda", stats=st)
+    nat = merge.merge_reads_arrays(*adv, use_native=True)
+    log(f"[merge] adversarial block of {adv[0].shape[0]} pairs: shortlist overflow "
+        f"{bool(short['overflow'])}, {st['dense_rows']} rows rerun densely, "
+        f"{int(nat['merged'].sum())} merged, {int(nat['n_ambiguous'])} ambiguous; dense == "
+        f"wrapper == native: {same_merge(dense, wrapper) and same_merge(wrapper, nat)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    check(bool(short["overflow"]) and st["dense_rows"] >= adv[0].shape[0] // 16 // 2,
+          "the adversarial block did not overflow the shortlist")
+    check(same_merge(dense, wrapper) and same_merge(wrapper, nat),
+          "adversarial block: dense, wrapper and native merges differ")
+    return tot
+
+
+def phase_ci_device_merge(work, root):
+    """The CI sample through the CLI in a child process with
+    MHM2_NO_NATIVE_MERGE=1 (the merge on the card): the JAX package's FASTA
+    digest and ci/good-synth-sample-k2133.txt's metrics."""
+    fq = ci_sample(work)
+    out = os.path.join(work, "ci_run_device_merge")
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, MHM2_NO_NATIVE_MERGE="1",
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "mhm2_proxy_tpu_torch", "-r", fq, "-o", out,
+                          "-k", "21", "33"], cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"the CLI with MHM2_NO_NATIVE_MERGE=1 failed: "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    with open(os.path.join(out, "mhm2_torch.log")) as f:
+        said = [line.strip() for line in f if "pair merge:" in line or "Merged " in line]
+    fdig = sha256(os.path.join(out, "final_assembly.fasta"))
+    log(f"[ci] MHM2_NO_NATIVE_MERGE=1: wall {wall:.2f} s (a child process), {said}, "
+        f"final_assembly.fasta sha256 {fdig}")
+    check(any("block-vectorized merge on cuda" in line for line in said),
+          "the CLI did not run the device merge")
+    check(fdig == CI_FASTA_SHA256, "final_assembly.fasta with the device merge differs from "
+          "the JAX package's")
+    ci_metrics_gate(os.path.join(out, "final_assembly.fasta"))
+
+
 def phase_post_asm(fq, out):
     """--post-asm-only --post-asm-align --post-asm-abundance on the full
     community's output directory: every read aligned to the 27 Mbp
@@ -2434,14 +2659,15 @@ def main(argv):
     # rows, only phase 8 (the 27 Mbp community with --shards 4, the
     # minimizer metered), or only phase 9 (the same with --hosts 2 --shards
     # 4, the supermer stage metered), or only phase 10 (processes over
-    # torch.distributed on the one card), on the package of DIR (default
-    # this checkout),
-    # e.g. a parent tree unpacked beside it
+    # torch.distributed on the one card), or only phase 2's lookup rows, or
+    # only the pair-merge phase and the CI sample with the device merge, on
+    # the package of DIR (default this checkout), e.g. a parent tree
+    # unpacked beside it
     only = argv[1] if argv[:1] == ["--only"] and len(argv) > 1 else None
     if argv and only not in ("callers", "ladder", "stitch", "kernels", "sharded", "hosts",
-                             "multiproc"):
+                             "multiproc", "lookup", "merge"):
         print("usage: chip_smoke.py [--only callers|ladder|stitch|kernels|sharded|hosts|"
-              "multiproc [PACKAGE_DIR]]", file=sys.stderr)
+              "multiproc|lookup|merge [PACKAGE_DIR]]", file=sys.stderr)
         return 2
     root = os.path.abspath(argv[2]) if len(argv) > 2 else ROOT
     if not os.path.isdir(os.path.join(root, "mhm2_proxy_tpu_torch")):
@@ -2458,6 +2684,11 @@ def main(argv):
         _build.load()
         if only == "callers":
             phase_callers()
+            return 0
+        if only == "lookup":
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(20260817)
+            phase_lookup(gen)
             return 0
         if only == "kernels":
             gen = torch.Generator(device="cuda")
@@ -2487,6 +2718,9 @@ def main(argv):
                 phase_sharded_arctic(work, *arctic_community(work))
             elif only == "hosts":
                 phase_hosts_arctic(work, *arctic_community(work))
+            elif only == "merge":
+                phase_merge(arctic_community(work)[0])
+                phase_ci_device_merge(work, root)
             else:
                 log(f"[multiproc] launches {phase_multiproc(work, arctic_community(work)[0])}")
         finally:
@@ -2516,6 +2750,8 @@ def main(argv):
         fq, gens, counts, out, k21, ladder_ms, k21_table = phase_arctic(work)
         phase_stitch(k21_table)
         del k21_table
+        phase_merge(fq)
+        phase_ci_device_merge(work, root)
         phase_store_equality(fq, gens)
         counts["ssw"] = phase_post_asm(fq, out)["ssw"]
         sharded_counts, ladder_ms["minimizer"], sharded = phase_sharded_arctic(

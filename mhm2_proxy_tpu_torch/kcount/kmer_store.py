@@ -44,7 +44,7 @@ class FinalTable:
     n: torch.Tensor  # 0-dim int32 number of valid rows
 
     @classmethod
-    def from_reference(cls, k: int, words, count, left, right, n, device="cpu") -> "FinalTable":
+    def from_reference(cls, k: int, words, count, left, right, n, device="cuda") -> "FinalTable":
         """Build from the numpy arrays of a mhm2_proxy_tpu FinalTable (uint32
         words are taken bit for bit as int32)."""
         w = np.ascontiguousarray(np.asarray(words)).view(np.int32)

@@ -190,6 +190,11 @@ class Assembler:
             f"Loaded {len(self.packed_reads)} reads, {self.packed_reads.total_bases} bases"
         )
 
+    def add_interleaved(self, seqs, quals):
+        """Merge interleaved mates (seqs[0::2] with seqs[1::2]) and pack them."""
+        c, q, l = _lists_to_block(seqs, quals, self.cfg.pad_len_quantum, self.cfg.qual_offset)
+        self._merge_blocks(c[0::2], q[0::2], l[0::2], c[1::2], q[1::2], l[1::2])
+
     def add_unpaired(self, seqs, quals):
         c, q, l = _lists_to_block(seqs, quals, self.cfg.pad_len_quantum, self.cfg.qual_offset)
         # unpaired reads get a pair id block like the reference's dummy-mate
@@ -216,7 +221,8 @@ class Assembler:
         )
         c1, c2 = pad(c1, 4), pad(c2, 4)
         q1, q2 = pad(q1, cfg.qual_offset), pad(q2, cfg.qual_offset)
-        out = merge_reads_arrays(c1, q1, l1, c2, q2, l2, qual_offset=cfg.qual_offset)
+        out = merge_reads_arrays(c1, q1, l1, c2, q2, l2, qual_offset=cfg.qual_offset,
+                                 device=self.device)
         merged = out["merged"] & (l1 > 0) & (l2 > 0)
         mi = np.nonzero(merged)[0]
         ui = np.nonzero(~merged & ((l1 > 0) | (l2 > 0)))[0]

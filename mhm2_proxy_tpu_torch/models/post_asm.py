@@ -181,6 +181,27 @@ def align_reads_to_contigs(
     return out
 
 
+def sam_record(name: str, out: dict, i: int, lens: np.ndarray,
+               cnames: list[str] | None = None) -> str:
+    """One SAM line (v1.6 mandatory fields + NM and AS tags) for read i of
+    a block, the reference's sam_record (post_asm.py:177): CIGAR "*" and NM
+    0 where `out` has none, and Contig<index> names where cnames is None."""
+    n = int(lens[i])
+    if out["cid"][i] < 0 or n == 0:
+        return f"{name}\t4\t*\t0\t0\t*\t*\t0\t0\t*\t*"
+    seq = _ACGT[np.minimum(out["codes"][i, :n], 4)].tobytes().decode()
+    flag = 16 if out["rev"][i] else 0
+    pos = int(out["win_lo"][i] + out["r_begin"][i]) + 1  # SAM is 1-based
+    cig = out["cigar"][i] if out.get("cigar") else "*"
+    nm = int(out["nm"][i]) if "nm" in out else 0
+    ci = int(out["cid"][i])
+    rname = cnames[ci] if cnames is not None else f"Contig{ci}"
+    return (
+        f"{name}\t{flag}\t{rname}\t{pos}\t60\t{cig}"
+        f"\t*\t0\t0\t{seq}\t*\tNM:i:{nm}\tAS:i:{int(out['score'][i])}"
+    )
+
+
 def sam_block(names: list[str], out: dict, rows: np.ndarray, lens: np.ndarray,
               cnames: list[str]) -> str:
     """The SAM lines (v1.6 mandatory fields + NM and AS tags) of a block's

@@ -31,6 +31,11 @@ def ascii_to_codes(buf: np.ndarray | bytes) -> np.ndarray:
     return _ASCII_CODE[a]
 
 
+def codes_to_ascii(codes: np.ndarray) -> bytes:
+    lut = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    return lut[np.asarray(codes, np.uint8)].tobytes()
+
+
 def _endmasks(k: int, W: int) -> list[int]:
     """Per-word masks zeroing 2-bit fields beyond base k-1."""
     masks = []
@@ -111,6 +116,12 @@ def _lex_less64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for w in range(W - 2, -1, -1):
         lt = (a[..., w] < b[..., w]) | ((a[..., w] == b[..., w]) & lt)
     return lt
+
+
+def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lexicographic a < b over the trailing word axis of int32-held u32
+    words, in u32 order (reference kmer.cpp:266-272)."""
+    return _lex_less64(widen(a), widen(b))
 
 
 def canonicalize_words(words: torch.Tensor, k: int):
@@ -252,6 +263,20 @@ def minimizers_from_words(words: torch.Tensor, k: int, m: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # host conversion utilities (numpy; tests / IO)
 # ---------------------------------------------------------------------------
+
+
+def strings_to_words(kmers: list[str], k: int) -> np.ndarray:
+    """Host: pack k-mer strings into (N, W) uint32 (oracle layout)."""
+    W = words32_for_k(k)
+    out = np.zeros((len(kmers), W), np.uint32)
+    for n, s in enumerate(kmers):
+        if len(s) != k:
+            raise ValueError(f"k-mer {s!r} is not {k} bases long")
+        for i, c in enumerate(s.upper()):
+            code = {"A": 0, "C": 1, "G": 2, "T": 3, "N": 2}[c]
+            w, fld = i // 16, i % 16
+            out[n, w] |= np.uint32(code << (2 * (15 - fld)))
+    return out
 
 
 def codes_from_words(words: np.ndarray, k: int) -> np.ndarray:

@@ -15,8 +15,10 @@ every query gets the table row with its key, in query order.
   payload lane, and the join kernel's separate-lane variant stores each
   query's (idx+1) << 32 | payload answer at its index.
 
-table_lookup is the reference's lower-bound bisection (lookup.py:315-342),
-which XLA runs there: plain torch on the table's device.
+table_join is table_join_payload without a payload (payload_bits 0, so the
+fused lane below 2^25 rows). table_lookup and rank_rows are the reference's
+batched bisections (lookup.py:287-342), which XLA runs there: plain torch
+on the table's device.
 """
 
 from __future__ import annotations
@@ -68,6 +70,17 @@ def table_join_payload(table_words, n_valid, query_words, payload,
     return idx, found, pay
 
 
+def table_join(table_words, n_valid, query_words, max_dup: int = 32):
+    """For each query row the table row (within the valid prefix n_valid)
+    with the same key: returns (idx int32, found bool); idx has meaning
+    only where found. The preconditions of table_join_payload hold."""
+    T = table_words.shape[0]
+    payload = torch.zeros((T,), dtype=torch.int64, device=table_words.device)
+    idx, found, _ = table_join_payload(table_words, n_valid, query_words, payload, max_dup,
+                                       payload_bits=0)
+    return idx, found
+
+
 def merged_join_rows_sep(table_words, query_words, payload):
     """The separate-lane merge: the table rows (key lanes + row idx + payload)
     merged with the sorted query rows (key lanes + idx | bit 31 + 0): W + 2
@@ -102,6 +115,47 @@ def _lex_less_u32(a, b):
     return lt
 
 
+def _lex_leq_u32(a, b):
+    """(N,) bool: row a <= row b over (N, W) int32 words read as u32."""
+    W = a.shape[1]
+    le = widen(a[:, W - 1]) <= widen(b[:, W - 1])
+    for w in range(W - 2, -1, -1):
+        aw, bw = widen(a[:, w]), widen(b[:, w])
+        le = (aw < bw) | ((aw == bw) & le)
+    return le
+
+
+def _bisect(table_words, n_valid, query_words, go_right):
+    """(Q,) int64 lower bound: the first row in [0, n_valid) at which
+    go_right(row, query) is false, in the reference's bit_length(T - 1) + 1
+    steps (T >= 1)."""
+    T = table_words.shape[0]
+    Q = query_words.shape[0]
+    dev = query_words.device
+    steps = max(1, (T - 1).bit_length() + 1) if T > 1 else 1
+    lo = torch.zeros((Q,), dtype=torch.int64, device=dev)
+    hi = torch.full((Q,), int(n_valid), dtype=torch.int64, device=dev)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        right = go_right(table_words[torch.clamp(mid, 0, T - 1)], query_words)
+        active = lo < hi
+        lo = torch.where(active & right, mid + 1, lo)
+        hi = torch.where(active & ~right, mid, hi)
+    return lo
+
+
+def rank_rows(table_words, n_valid, query_words, upper: bool = False):
+    """Rank of each query row in a lexsorted table prefix: (Q,) int32, the
+    number of the first n_valid table rows < the query (lower, default) or
+    <= it (upper=True), in u32 order. Two sorted runs interleave at
+    positions i + rank(other, row) without a re-sort."""
+    if table_words.shape[0] == 0:
+        return torch.zeros((query_words.shape[0],), dtype=torch.int32,
+                           device=query_words.device)
+    cmp = _lex_leq_u32 if upper else _lex_less_u32
+    return _bisect(table_words, n_valid, query_words, cmp).to(torch.int32)
+
+
 def table_lookup(table_words, n_valid, query_words):
     """Lower-bound binary search of query rows in a lexsorted table prefix.
 
@@ -115,15 +169,7 @@ def table_lookup(table_words, n_valid, query_words):
     if T == 0:
         return (torch.zeros((Q,), dtype=torch.int32, device=dev),
                 torch.zeros((Q,), dtype=torch.bool, device=dev))
-    steps = max(1, (T - 1).bit_length() + 1) if T > 1 else 1
-    lo = torch.zeros((Q,), dtype=torch.int64, device=dev)
-    hi = torch.full((Q,), int(n_valid), dtype=torch.int64, device=dev)
-    for _ in range(steps):
-        mid = (lo + hi) >> 1
-        less = _lex_less_u32(table_words[torch.clamp(mid, 0, T - 1)], query_words)
-        active = lo < hi
-        lo = torch.where(active & less, mid + 1, lo)
-        hi = torch.where(active & ~less, mid, hi)
+    lo = _bisect(table_words, n_valid, query_words, _lex_less_u32)
     idx = torch.clamp(lo, 0, T - 1)
     found = (lo < int(n_valid)) & (table_words[idx] == query_words).all(dim=1)
     return idx.to(torch.int32), found

@@ -516,7 +516,7 @@ class ShardedTable:
         return self.words.shape[0]
 
     @classmethod
-    def from_reference(cls, k: int, words, count, left, right, n, device="cpu") -> "ShardedTable":
+    def from_reference(cls, k: int, words, count, left, right, n, device="cuda") -> "ShardedTable":
         """Build from the numpy arrays of a mhm2_proxy_tpu ShardedTable
         (uint32 words taken bit for bit as int32)."""
         dev = torch.device(device)

@@ -126,7 +126,7 @@ def _ref_table(S, rng, n_reads=96, k=21, cap=4096):
     counter.add_reads_block(*reads_to_block(reads, B=n_reads, L=64))
     want = counter.finalize()
     got = ShardedTable.from_reference(k, *(np.asarray(x) for x in (
-        want.words, want.count, want.left, want.right, want.n)))
+        want.words, want.count, want.left, want.right, want.n)), device="cpu")
     return want, got
 
 
@@ -177,7 +177,8 @@ def test_stitch_long_paths_and_cycle_on_reference_table(S):
     want_stats, got_stats = {}, {}
     want = ref_traverse(table, k, stats=want_stats)
     got = traverse_debruijn_graph_sharded(ShardedTable.from_reference(k, *(np.asarray(x) for x in (
-        table.words, table.count, table.left, table.right, table.n))), k, stats=got_stats)
+        table.words, table.count, table.left, table.right, table.n)), device="cpu"), k,
+        stats=got_stats)
     assert sorted(got) == sorted(want) and len(got) > 2
     assert {key: got_stats[key] for key in want_stats} == want_stats
     assert set(got_stats["stitch_timings"]) == {"edges_s", "states_s", "render_s"}

@@ -61,7 +61,7 @@ def _zoo(kind, k):
     ref = RT.fit_table_rows(store.finalize())
     port = PT.fit_table_rows(FinalTable.from_reference(
         k, np.asarray(ref.words), np.asarray(ref.count), np.asarray(ref.left),
-        np.asarray(ref.right), ref.n))
+        np.asarray(ref.right), ref.n, device="cpu"))
     r_edges = RT.build_edges(ref.words, ref.count, ref.left, ref.right, ref.n, k)
     p_edges = PT.build_edges(port.words, port.count, port.left, port.right, port.n, k)
     return ref, r_edges, port, p_edges

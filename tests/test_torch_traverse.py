@@ -21,7 +21,7 @@ def test_traversal_on_reference_table(k):
     store.add_reads_block(*reads_to_block(_reads(rng, genome, 400, k + 10, k + 70, err=0.003)))
     ref = store.finalize()
     port = FinalTable.from_reference(k, np.asarray(ref.words), np.asarray(ref.count),
-                                     np.asarray(ref.left), np.asarray(ref.right), ref.n)
+                                     np.asarray(ref.left), np.asarray(ref.right), ref.n, device="cpu")
     assert port.to_host_dict() == ref.to_host_dict()
 
     rt, pt = RT.fit_table_rows(ref), PT.fit_table_rows(port)
