@@ -87,7 +87,8 @@ Phases (any failure raises, and the script exits non-zero):
      ranged ctg-rule fold, >= 95% exact-substring bases, and the k = 21
      edge join's shape (trimmed table rows, valid and UU rows, all-ones
      table rows and queries, the longest equal-key run), and every round's
-     traversal and stitch lines (each stitch stage's seconds);
+     traversal and stitch lines (each stitch stage's seconds: the run
+     records its spans, utils/trace.py, and logs their table);
   5b. the stitch on CUDA on phase 5's k = 21 table against the native
      sequential walker on the same states after the same repair (equal
      sorted contig lists): states, paths emitted and kept, each stage's
@@ -155,6 +156,7 @@ to chip_smoke_work/ next to this script (removed at the end).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -1767,6 +1769,16 @@ def arctic_community(work):
     return fq, gens
 
 
+def span_recording():
+    """The package's span recording (utils/trace.py), whose stitch stages
+    end at a device sync each; nothing in a tree from before it."""
+    try:
+        from mhm2_proxy_tpu_torch.utils import trace
+    except ImportError:
+        return contextlib.nullcontext()
+    return trace.recording(syncs=False)
+
+
 def phase_arctic(work):
     """The full --arctic-scale community through the CLI, default k ladder."""
     fq, gens = arctic_community(work)
@@ -1774,7 +1786,7 @@ def phase_arctic(work):
     from mhm2_proxy_tpu_torch.kcount import KmerCountStore
 
     k21 = k21_table_copy(KmerCountStore, lambda table: table.to_numpy())
-    with k21, launch_meter() as meter:
+    with k21, launch_meter() as meter, span_recording() as spans:
         wall, counts, _ = run_cli(fq, out)
     totals = meter.totals()
     ladder = {name: totals[name] for name in LADDER_KERNELS}
@@ -1791,6 +1803,11 @@ def phase_arctic(work):
             log(f"[arctic] {line.strip().split(' ', 2)[-1]}")
     for name, secs in modules.items():
         log(f"[arctic] stage {name}: {secs:.2f} s")
+    if spans is not None:
+        from mhm2_proxy_tpu_torch.utils import trace
+
+        for line in trace.table(spans):
+            log(f"[arctic] {line}")
     log(f"[arctic] wall {wall:.2f} s ({k21.seconds:.2f} s of it copying the k=21 table to the "
         f"host for phases 5b and 8), launches {counts}")
     for name, (calls, ms) in ladder.items():

@@ -15,13 +15,13 @@ bases with their depth sums and offsets, and only slices it into strings.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..ops import bitkmer as bk
-from ..ops.ssw import _lap
+from ..utils import trace
+
+STAGE = "traverse.stitch."  # the stages' span names: STAGE + pack, repair, ...
 
 
 def _pack_states_device(uu, r_idx, r_port, r_ok, l_idx, l_port, l_ok, words, count, k: int):
@@ -64,15 +64,17 @@ def _doubling(nxt, val, rounds: int, combine):
     return nxt, val
 
 
-def canonical_contigs(plen, path, pos, base, count, heads, head_fwd, k: int, timings=None):
+def canonical_contigs(plen, path, pos, base, count, heads, head_fwd, k: int, timings=None,
+                      counts=None):
     """Contigs of n_paths paths from their on-path states, on the states'
-    device: contigs_from_blob of render_contigs_blob."""
+    device: contigs_from_blob of render_contigs_blob. `counts`, if a dict,
+    receives fetched_bytes."""
     blob = render_contigs_blob(plen, path, pos, base, count, heads, head_fwd, k, timings)
-    t0 = time.perf_counter()
+    t0 = trace.now()
     out = contigs_from_blob(blob, plen.shape[0], k)
-    _lap(timings, "strings_s", t0, plen.device)
-    if timings is not None:
-        timings["fetched_bytes"] = blob.nbytes
+    trace.lap(timings, "strings_s", t0, plen.device, STAGE, fetched_bytes=blob.nbytes)
+    if counts is not None:
+        counts["fetched_bytes"] = blob.nbytes
     return out
 
 
@@ -91,7 +93,7 @@ def render_contigs_blob(plen, path, pos, base, count, heads, head_fwd, k: int, t
     counts. `timings`, if a dict, receives render_s and fetch_s."""
     dev = plen.device
     n_paths = plen.shape[0]
-    t0 = time.perf_counter()
+    t0 = trace.now()
     clen = plen.to(torch.int64) + (k - 1)
     offsets = torch.zeros(n_paths + 1, dtype=torch.int64, device=dev)
     torch.cumsum(clen, 0, out=offsets[1:])
@@ -118,9 +120,9 @@ def render_contigs_blob(plen, path, pos, base, count, heads, head_fwd, k: int, t
     lut = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
     text = lut[torch.where(rc_less[pid], rc, buf).to(torch.int64)]
     del pid, rc, buf
-    t0 = _lap(timings, "render_s", t0, dev)
+    t0 = trace.lap(timings, "render_s", t0, dev, STAGE)
     blob = torch.cat([offsets.view(torch.uint8), depth.view(torch.uint8), text]).cpu().numpy()
-    _lap(timings, "fetch_s", t0, dev)
+    trace.lap(timings, "fetch_s", t0, dev, STAGE)
     return blob
 
 
@@ -137,15 +139,18 @@ def contigs_from_blob(blob, n_paths: int, k: int):
 
 
 def stitch_paths(edges: dict, words, count, k: int, timings: dict | None = None,
-                 min_states: int = 1):
+                 min_states: int = 1, counts: dict | None = None):
     """Path decomposition -> list of (canonical seq, depth), on the device
     of the edge dict.
 
     min_states drops paths below that many states before anything reaches
     the host (the assembler passes its k + 2 contig bound; at k = 21 the
     graph has tens of millions of 1-2 state paths). `timings`, if a dict,
-    receives each stage's seconds (after the device's queued work), the
-    counts of states and paths, and the bytes fetched."""
+    receives each stage's seconds, each stage ending at a sync of the
+    device's queued work; `counts` (else `timings`), if a dict, receives
+    the counts of states and paths, the repair's dropped edges and the
+    bytes fetched. While a trace records, each stage is a span
+    STAGE + <stage> holding those counts."""
     n = int(edges["uu"].shape[0])
     if n == 0:
         return []
@@ -153,20 +158,21 @@ def stitch_paths(edges: dict, words, count, k: int, timings: dict | None = None,
         raise ValueError("state ids exceed int32: more than 2^30 table rows")
     S = 2 * n
     dev = words.device
-    t0 = time.perf_counter()
+    counts = timings if counts is None else counts
+    t0 = trace.now()
     succ, base, cnt = _pack_states_device(
         edges["uu"], edges["r_idx"], edges["r_port"], edges["r_ok"],
         edges["l_idx"], edges["l_port"], edges["l_ok"], words, count, k,
     )
-    t0 = _lap(timings, "pack_s", t0, dev)
+    t0 = trace.lap(timings, "pack_s", t0, dev, STAGE)
     state_valid = succ != -2
     if not bool(state_valid.any()):
         return []
     succ, n_dropped = _repair(succ)
-    if timings is not None and n_dropped:
-        timings["nonreciprocal_dropped"] = n_dropped
+    if counts is not None and n_dropped:
+        counts["nonreciprocal_dropped"] = n_dropped
     succ = torch.where(state_valid, succ, -1)
-    t0 = _lap(timings, "repair_s", t0, dev)
+    t0 = trace.lap(timings, "repair_s", t0, dev, STAGE, nonreciprocal_dropped=n_dropped)
 
     rounds = max(1, int(np.ceil(np.log2(S + 1))) + 1)
     own = torch.arange(S, dtype=torch.int32, device=dev)
@@ -180,7 +186,7 @@ def stitch_paths(edges: dict, words, count, k: int, timings: dict | None = None,
     # a path from its leader
     succ2 = torch.where(in_cycle & (succ == 2 * mini + 1), -1, succ)
     del nxt, mini, succ
-    t0 = _lap(timings, "cycles_s", t0, dev)
+    t0 = trace.lap(timings, "cycles_s", t0, dev, STAGE)
 
     term2 = succ2 < 0
     # d2 of a state still on a cycle is meaningless (it may wrap); it is read
@@ -196,10 +202,13 @@ def stitch_paths(edges: dict, words, count, k: int, timings: dict | None = None,
     emit = is_start & (in_cycle | (own < (nxt2 ^ 1)))
     starts = torch.nonzero(emit & (d2 >= min_states - 1)).squeeze(1)
     n_paths = starts.shape[0]
-    if timings is not None:
-        timings.update(states=S, paths=int(emit.sum()), paths_kept=n_paths)
+    found = {}
+    if counts is not None or trace.is_recording():
+        found = dict(states=S, paths=int(emit.sum()), paths_kept=n_paths)
+        if counts is not None:
+            counts.update(found)
     del in_cycle, has_pred, is_start, emit
-    t0 = _lap(timings, "paths_s", t0, dev)
+    t0 = trace.lap(timings, "paths_s", t0, dev, STAGE, **found)
     if n_paths == 0:
         return []
 
@@ -213,6 +222,6 @@ def stitch_paths(edges: dict, words, count, k: int, timings: dict | None = None,
     d_start = d2[starts]
     pos = (d_start[path] - d2[on]).to(torch.int64)
     del registry, nxt2, d2, off_cycle
-    _lap(timings, "path_map_s", t0, dev)
+    trace.lap(timings, "path_map_s", t0, dev, STAGE)
     return canonical_contigs(d_start + 1, path, pos, base[on], cnt[on >> 1], words[starts >> 1],
-                             (starts & 1) == 1, k, timings)
+                             (starts & 1) == 1, k, timings, counts)

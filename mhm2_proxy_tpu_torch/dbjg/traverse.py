@@ -24,6 +24,7 @@ from ..ops import bitkmer as bk
 from ..ops.count import trim_rows
 from ..ops.lookup import table_join_payload
 from ..ops.u32 import ONES, widen
+from ..utils import trace
 
 
 def build_edges(words, count, left, right, n, k: int):
@@ -130,19 +131,23 @@ def term_stats_to_dict(term_stats) -> dict:
 def traverse_debruijn_graph(table, k: int, stats: dict | None = None, min_ctg_len: int = 0):
     """Full traversal of a FinalTable -> list of (seq, depth).
 
-    `stats`, if a dict, receives the walk-termination counts. min_ctg_len > 0
-    drops contigs shorter than it before host materialization (the assembler
-    passes k+2)."""
+    `stats`, if a dict, receives the walk-termination counts and, under
+    "stitch_timings", the stitch's counts, with its stages' seconds while
+    a trace is recording (the stages then end at a device sync each).
+    min_ctg_len > 0 drops contigs shorter than it before host
+    materialization (the assembler passes k+2)."""
     from .stitch import stitch_paths
 
-    table = fit_table_rows(table)
-    edges = build_edges(table.words, table.count, table.left, table.right, table.n, k)
-    if stats is not None:
-        stats["terminations"] = term_stats_to_dict(edges["term_stats"])
-    timings = {} if stats is not None else None
+    with trace.span("traverse.edges"):
+        table = fit_table_rows(table)
+        edges = build_edges(table.words, table.count, table.left, table.right, table.n, k)
+        if stats is not None:
+            stats["terminations"] = term_stats_to_dict(edges["term_stats"])
+    counts = {} if stats is not None else None
+    timings = {} if stats is not None and trace.is_recording() else None
     out = stitch_paths(edges, table.words, table.count, k, timings=timings,
-                       min_states=max(1, min_ctg_len - (k - 1)))
+                       min_states=max(1, min_ctg_len - (k - 1)), counts=counts)
     if stats is not None:
-        stats["stitch_timings"] = timings
+        stats["stitch_timings"] = dict(timings or {}, **counts)
     return out
 

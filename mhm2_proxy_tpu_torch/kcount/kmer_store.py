@@ -30,6 +30,7 @@ from ..ops import bitkmer as bk
 from ..ops import count as C
 from ..ops.sort import merge_sorted_lanes
 from ..ops.u32 import ONES, lexsort_lanes, narrow, rows_equal_next, widen
+from ..utils import trace
 
 
 @dataclasses.dataclass
@@ -125,6 +126,7 @@ def render_kmer_dump(words, count, left, right, k: int) -> bytes:
 def _host_u32(x) -> np.ndarray:
     """A device int32 lane (u32 bits) as a host uint32 array: unsigned order
     for quantiles, searchsorted and comparisons."""
+    trace.count("d2h_bytes", x.numel() * 4)
     return x.cpu().numpy().view(np.uint32)
 
 
@@ -210,6 +212,8 @@ class KmerCountStore:
         (max(0, len-k-1) per read, known on the host)."""
         lens_np = np.asarray(lens, np.int32)
         n_valid = int(np.maximum(lens_np.astype(np.int64) - self.k - 1, 0).sum())
+        trace.count("h2d_bytes", codes.nbytes + qual_ok.nbytes + lens_np.nbytes)
+        trace.count("raw_rows", n_valid)
         dev = self.device
         fn = C.block_to_raw_run if self._raw_packed else C.block_to_raw_run_sep
         run = fn(
@@ -286,15 +290,16 @@ class KmerCountStore:
         everything anyway."""
         if not self.raw_runs:
             return
-        merged = self._merged_raw()
-        split = C.split_from_sorted_packed if self._raw_packed else C.split_from_sorted_sep
-        run = self._trim(split(merged, self.k, self.W))
-        del merged
-        self.stats["collapses"] += 1
-        if cascade:
-            self._push_split_run(run)
-        else:
-            self.runs.append(run)
+        with trace.span("count.collapse"):
+            merged = self._merged_raw()
+            split = C.split_from_sorted_packed if self._raw_packed else C.split_from_sorted_sep
+            run = self._trim(split(merged, self.k, self.W))
+            del merged
+            self.stats["collapses"] += 1
+            if cascade:
+                self._push_split_run(run)
+            else:
+                self.runs.append(run)
 
     def resident_run_bytes(self) -> int:
         """Device bytes held by the read-pass runs (memory observability)."""
@@ -310,6 +315,7 @@ class KmerCountStore:
         Runs are trimmed to occupancy, then padded to pow2 rows with sentinel
         tails, and merged LSM-style."""
         dev = self.device
+        trace.count("h2d_bytes", codes.nbytes + 2 * 4 * len(lens))
         codes_t = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
         rec = C.read_kmer_records(
             codes_t, torch.ones_like(codes_t, dtype=torch.bool),
@@ -338,23 +344,25 @@ class KmerCountStore:
         own (final_fold_runs over plain slices of the live rows), and the
         pieces, trimmed to their live rows, concatenate in key order."""
         runs, self.runs = self.runs, []
-        w0_parts = []
-        for r in runs:
-            w0_parts.append(_host_u32(r[0][: int(r[4]), 0]))
-            w0_parts.append(_host_u32(r[5][: int(r[7]), 0]))
-        Q, cuts = _range_cuts(w0_parts, self.RANGED_FOLD_TARGET_ROWS)
+        with trace.span("finalize.cuts"):
+            w0_parts = []
+            for r in runs:
+                w0_parts.append(_host_u32(r[0][: int(r[4]), 0]))
+                w0_parts.append(_host_u32(r[5][: int(r[7]), 0]))
+            Q, cuts = _range_cuts(w0_parts, self.RANGED_FOLD_TARGET_ROWS)
         pieces = []
         for q in range(Q):
-            range_runs = []
-            for j, r in enumerate(runs):
-                m0, m1 = int(cuts[2 * j][q]), int(cuts[2 * j][q + 1])
-                s0, s1 = int(cuts[2 * j + 1][q]), int(cuts[2 * j + 1][q + 1])
-                range_runs.append(tuple(x[m0:m1] for x in r[:4]) + (m1 - m0,)
-                                  + tuple(x[s0:s1] for x in r[5:7]) + (s1 - s0,))
-            piece = C.final_fold_runs(range_runs, dmin_thres=self.dmin_thres, purge=purge)
-            n_live = int(piece[-1])
-            pieces.append(tuple(x[:n_live].clone() for x in piece[:4]))
-            del piece
+            with trace.span("finalize.fold"):
+                range_runs = []
+                for j, r in enumerate(runs):
+                    m0, m1 = int(cuts[2 * j][q]), int(cuts[2 * j][q + 1])
+                    s0, s1 = int(cuts[2 * j + 1][q]), int(cuts[2 * j + 1][q + 1])
+                    range_runs.append(tuple(x[m0:m1] for x in r[:4]) + (m1 - m0,)
+                                      + tuple(x[s0:s1] for x in r[5:7]) + (s1 - s0,))
+                piece = C.final_fold_runs(range_runs, dmin_thres=self.dmin_thres, purge=purge)
+                n_live = int(piece[-1])
+                pieces.append(tuple(x[:n_live].clone() for x in piece[:4]))
+                del piece
         self.stats["read_pieces"] += Q
         del runs
         return _combine_pieces(pieces)
@@ -372,9 +380,10 @@ class KmerCountStore:
                 tuple(x[: max(rn, 1)] for x in r[:4]) + (rn,),
                 tuple(x[: max(cn, 1)] for x in c[:4]) + (cn,), self.dmin_thres,
             )
-        Q, (rcut, ccut) = _range_cuts(
-            [_host_u32(r[0][:rn, 0]), _host_u32(c[0][:cn, 0])], self.RANGED_FOLD_TARGET_ROWS
-        )
+        with trace.span("finalize.cuts"):
+            Q, (rcut, ccut) = _range_cuts(
+                [_host_u32(r[0][:rn, 0]), _host_u32(c[0][:cn, 0])], self.RANGED_FOLD_TARGET_ROWS
+            )
         pieces = []
         for q in range(Q):
             r0, r1, c0, c1 = int(rcut[q]), int(rcut[q + 1]), int(ccut[q]), int(ccut[q + 1])
@@ -393,11 +402,13 @@ class KmerCountStore:
         # merge cascade allocates (reference kmer_store.py:583-587)
         has_ctg = bool(self.ctg_runs)
         if not self.runs:
-            merged = self._merged_raw()
-            final_fn = C.final_from_sorted_packed if self._raw_packed else C.final_from_sorted_sep
-            out = final_fn(merged, self.k, self.W, dmin_thres=self.dmin_thres,
-                           purge=not has_ctg)
-            del merged
+            with trace.span("finalize.fold"):
+                merged = self._merged_raw()
+                final_fn = (C.final_from_sorted_packed if self._raw_packed
+                            else C.final_from_sorted_sep)
+                out = final_fn(merged, self.k, self.W, dmin_thres=self.dmin_thres,
+                               purge=not has_ctg)
+                del merged
         else:
             # mixed (a collapse happened): the raw remainder joins the split
             # runs without a cascade merge, since the fold consumes every run
@@ -405,12 +416,15 @@ class KmerCountStore:
             if sum(self._split_rows(r) for r in self.runs) > self.RANGED_FOLD_MIN_ROWS:
                 out = self._final_fold_ranged(purge=not has_ctg)
             else:
-                runs, self.runs = self.runs, []
-                out = C.final_fold_runs(runs, dmin_thres=self.dmin_thres, purge=not has_ctg)
-                del runs
+                with trace.span("finalize.fold"):
+                    runs, self.runs = self.runs, []
+                    out = C.final_fold_runs(runs, dmin_thres=self.dmin_thres,
+                                            purge=not has_ctg)
+                    del runs
         if not has_ctg:
             return FinalTable(self.k, *out)
-        return FinalTable(self.k, *self._apply_ctg_rules_ranged(out, self._merged_ctgs()))
+        with trace.span("finalize.ctg_rules"):
+            return FinalTable(self.k, *self._apply_ctg_rules_ranged(out, self._merged_ctgs()))
 
 
 def _push_run(runs, agg, merge_fn):

@@ -22,16 +22,17 @@ shards over the processes.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import sys
-import time
 
 import torch
 
 from .io.fasta import read_fasta
 from .models.assembler import Assembler, AssemblerConfig, Contig
 from .options import Options, parse_args, setup_output_dir
+from .utils import trace
 from .utils.logger import get_logger
 from .utils.memlog import MemoryTracker
 
@@ -46,11 +47,11 @@ def log_module(log, name: str, secs: float):
 
         s = min_sum_max(secs)
         log.info(
-            f"[module] {name} {s['avg']:.2f}s "
-            f"(min {s['min']:.2f} max {s['max']:.2f} over {s['n']} procs)"
+            f"[module] {name} {s['avg']:.3f}s "
+            f"(min {s['min']:.3f} max {s['max']:.3f} over {s['n']} procs)"
         )
     else:
-        log.info(f"[module] {name} {secs:.2f}s")
+        log.info(f"[module] {name} {secs:.3f}s")
 
 
 def _check_supported(opts: Options) -> None:
@@ -74,23 +75,38 @@ def _infer_contigs_k(fname: str) -> int:
     return int(m.group(1)) if m else 0
 
 
-def _profiled_round(asm: Assembler, k: int, out_dir: str, log) -> None:
-    """One round under torch.profiler (host and, on CUDA, device activity);
+@contextlib.contextmanager
+def _profiled(device, out_dir: str, log):
+    """The block (one round) under torch.profiler (host and, on CUDA, device
+    activity), each of the program's spans a record_function range in it;
     the trace goes to <out_dir>/profile/trace.json."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if asm.device.type == "cuda":
+    if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     prof_dir = os.path.join(out_dir, "profile")
     os.makedirs(prof_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        asm.run_round(k)
+    with profile(activities=acts) as prof, trace.profiler_ranges():
+        yield
     prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
     log.info(f"[profile] trace written to {prof_dir}")
 
 
 def run_pipeline(opts: Options) -> Assembler:
+    """One run, the root span `job`. --profile records the run's spans
+    (utils/trace.py) and logs their `[trace]` table at its end."""
+    with trace.recording() if opts.profile else contextlib.nullcontext() as spans:
+        with trace.span("job") as job:
+            asm = _run(opts)
+    if spans is not None:
+        log = get_logger()
+        for line in trace.table(spans, job.id):
+            log.info(line)
+    return asm
+
+
+def _run(opts: Options) -> Assembler:
     _check_supported(opts)
     device = torch.device(opts.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -126,23 +142,23 @@ def run_pipeline(opts: Options) -> Assembler:
     tracker = MemoryTracker(os.path.join(out_dir, "memory_tracker.log"))
     tracker.start()
     try:
-        t0 = time.time()
-        merged_ckpt = os.path.join(out_dir, "reads-merged.fastq.gz")
-        reloaded_merged = opts.restart and os.path.exists(merged_ckpt)
-        if reloaded_merged:
-            # the merged-reads checkpoint is already merged and holds any
-            # unpaired inputs: no re-merge (docs/mhm_guide.md:197-210)
-            asm.load_merged_reads(merged_ckpt)
-            log.info("[restart] reloaded merged reads checkpoint")
-        else:
-            asm.load_reads(list(opts.reads))
-            if opts.unpaired:
-                from .io.fastq import FastqReader
+        with trace.span("ingest") as sp:
+            merged_ckpt = os.path.join(out_dir, "reads-merged.fastq.gz")
+            reloaded_merged = opts.restart and os.path.exists(merged_ckpt)
+            if reloaded_merged:
+                # the merged-reads checkpoint is already merged and holds any
+                # unpaired inputs: no re-merge (docs/mhm_guide.md:197-210)
+                asm.load_merged_reads(merged_ckpt)
+                log.info("[restart] reloaded merged reads checkpoint")
+            else:
+                asm.load_reads(list(opts.reads))
+                if opts.unpaired:
+                    from .io.fastq import FastqReader
 
-                for fname in opts.unpaired:
-                    r = FastqReader(fname)
-                    asm.add_unpaired(r.seqs, r.quals)
-        log_module(log, "merge_reads", time.time() - t0)
+                    for fname in opts.unpaired:
+                        r = FastqReader(fname)
+                        asm.add_unpaired(r.seqs, r.quals)
+        log_module(log, "merge_reads", sp.seconds)
         if opts.checkpoint_merged and not reloaded_merged:
             asm.dump_merged_reads(merged_ckpt)
             log.info("[checkpoint] wrote reads-merged.fastq.gz")
@@ -182,13 +198,12 @@ def run_pipeline(opts: Options) -> Assembler:
                 log.info(f"[restart] skipping k={k}, loaded {len(asm.contigs)} contigs "
                          f"from {ckpt}")
                 continue
-            t0 = time.time()
-            if opts.profile and not profiled:
-                _profiled_round(asm, k, out_dir, log)
-                profiled = True
-            else:
-                asm.run_round(k)
-            log_module(log, f"contigging k={k}", time.time() - t0)
+            profiling = opts.profile and not profiled
+            profiled |= profiling
+            with _profiled(asm.device, out_dir, log) if profiling else contextlib.nullcontext():
+                with trace.span("round", k=k) as sp:
+                    asm.run_round(k)
+            log_module(log, f"contigging k={k}", sp.seconds)
             if os.environ.get("MHM2_TPU_TEST_CRASH_ROUND") == str(k):
                 # fault injection for supervisor tests: die hard AFTER the
                 # round's checkpoint is on disk (launcher.py auto-resume)
@@ -209,19 +224,19 @@ def run_pipeline(opts: Options) -> Assembler:
         if opts.post_asm_align or opts.post_asm_abundance:
             from .models.post_asm import post_asm_align
 
-            t0 = time.time()
             tm: dict = {}
-            post_asm_align(
-                asm,
-                sam_fname=os.path.join(out_dir, "final_assembly.sam")
-                if opts.post_asm_align else None,
-                abundance_fname=os.path.join(out_dir, "final_assembly_depths.tsv")
-                if opts.post_asm_abundance else None,
-                timings=tm,
-            )
+            with trace.span("post_asm") as sp:
+                post_asm_align(
+                    asm,
+                    sam_fname=os.path.join(out_dir, "final_assembly.sam")
+                    if opts.post_asm_align else None,
+                    abundance_fname=os.path.join(out_dir, "final_assembly_depths.tsv")
+                    if opts.post_asm_abundance else None,
+                    timings=tm,
+                )
             log.info("post-asm-align timings: " + ", ".join(
                 f"{n} {v:.2f}s" for n, v in tm.items() if n.endswith("_s")))
-            log_module(log, "post_asm_align", time.time() - t0)
+            log_module(log, "post_asm_align", sp.seconds)
         asm.print_stats()
         log.info("Finished")
     finally:

@@ -27,11 +27,10 @@ pure-Python oracle.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import kernels
 
 NEG = -(10 ** 6)
@@ -292,18 +291,6 @@ def _render_cigars(rr: np.ndarray, st: np.ndarray, run_len: np.ndarray, run_op: 
     return [text[a:b] for a, b in zip(begins.tolist(), ends.tolist())]
 
 
-def _lap(timings, key, t0, dev):
-    """Adds the seconds since t0 (after the device's queued work) to
-    timings[key]; returns the new start."""
-    if timings is None:
-        return t0
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
-    timings[key] = timings.get(key, 0.0) + t1 - t0
-    return t1
-
-
 def sw_cigar_batch(query, q_len, ref, r_len, aln: dict, match=1, mismatch=1, gap_open=1,
                    gap_extend=1, ambiguity=1, timings: dict | None = None):
     """CIGARs and mismatch counts for a whole aligned batch (the reference's
@@ -316,8 +303,10 @@ def sw_cigar_batch(query, q_len, ref, r_len, aln: dict, match=1, mismatch=1, gap
     text is rendered on the host. Returns (cigars: list[str], mismatches:
     (B,) int32 numpy); unaligned pairs get "". Equal to sw_cigar_host.
     timings, when given, accumulates the seconds of the DP ("tb_dp_s"), the
-    walk ("tb_walk_s") and the rendering ("cigar_render_s")."""
-    t0 = time.perf_counter()
+    walk ("tb_walk_s") and the rendering ("cigar_render_s"), each ending at
+    a sync of the device's queued work; while a trace records, each is a
+    span "post_asm." + its key without "_s"."""
+    t0 = trace.now()
     query = torch.as_tensor(query)
     ref = torch.as_tensor(ref, device=query.device)
     dev = query.device
@@ -344,17 +333,17 @@ def sw_cigar_batch(query, q_len, ref, r_len, aln: dict, match=1, mismatch=1, gap
                          255).to(torch.uint8)
     tb = global_tb_pointers(q_clip, r_clip, match=match, mismatch=mismatch, gap_open=gap_open,
                             gap_extend=gap_extend, ambiguity=ambiguity)
-    t0 = _lap(timings, "tb_dp_s", t0, dev)
+    t0 = trace.lap(timings, "tb_dp_s", t0, dev, "post_asm.")
     ops_rev, n_ops = _traceback_walk(tb, q_clip, r_clip, nq, nr)
     del tb
-    t0 = _lap(timings, "tb_walk_s", t0, dev)
+    t0 = trace.lap(timings, "tb_walk_s", t0, dev, "post_asm.")
     mismatches = torch.where(ok, (ops_rev >= 2).sum(dim=1), 0).to(torch.int32).cpu().numpy()
     ok_h = ok.cpu().numpy()
     qb_h = qb.cpu().numpy()
     tail = lane(q_len).cpu().numpy() - 1 - qe.cpu().numpy()
     runs = [x.cpu().numpy() for x in _op_runs(ops_rev, n_ops)]
     cigars = _render_cigars(*runs, qb_h, tail, ok_h)
-    _lap(timings, "cigar_render_s", t0, dev)
+    trace.lap(timings, "cigar_render_s", t0, dev, "post_asm.")
     return cigars, mismatches
 
 
