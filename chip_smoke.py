@@ -5,9 +5,9 @@
     python3 chip_smoke.py --only callers [DIR]     # phase 2's whole-call rows
     python3 chip_smoke.py --only ladder [DIR]      # phase 5, kernels metered
     python3 chip_smoke.py --only stitch [DIR]      # phase 5b on the k = 21 round alone
-    python3 chip_smoke.py --only kernels [DIR]     # phase 2's extract, finalize, join,
-                                                   # scan (+ collapse compact), ssw and
-                                                   # minimizer rows
+    python3 chip_smoke.py --only kernels [DIR]     # phase 2's extract, range cuts,
+                                                   # finalize, join, scan (+ collapse
+                                                   # compact), ssw and minimizer rows
     python3 chip_smoke.py --only sharded [DIR]     # phase 8 alone, the minimizer metered
     python3 chip_smoke.py --only hosts [DIR]       # phase 9 alone, the supermer stage metered
     python3 chip_smoke.py --only multiproc [DIR]   # phase 10 alone (processes, one card)
@@ -20,7 +20,7 @@ same inputs.)
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-     build of the eight CUDA kernels from csrc/ (one nvcc per source, in
+     build of the CUDA kernels from csrc/ (one nvcc per source, in
      parallel);
   2. each kernel against its plain PyTorch version on CUDA tensors at the
      main path's shapes, bit-exact (integers, tolerance 0), with times, the
@@ -31,7 +31,9 @@ Phases (any failure raises, and the script exits non-zero):
      contig windows and the supermer receiver's (524,288, nb) windows at
      k = 21, 33, 55, 77, 99; the ssw kernel on 65,536 read/window pairs under four
      scoring profiles, one past a signed byte, and at 2 x 150 bp reads
-     (Lq 150, Lr 214); the minimizer kernel on 131,072-read blocks at
+     (Lq 150, Lr 214); the range cuts of a ranged fold on 12 sorted runs
+     of 100M rows, Q = 17, with the host path they replace timed beside
+     them; the minimizer kernel on 131,072-read blocks at
      k = 21, 33, 55, 77, 99 with 4 shards, a (2048, 2048) contig-window
      block and 4096 shards; the finalize kernel (group sums, calls, purge
      and compaction in one launch) on two merged read blocks at k = 21 and
@@ -247,10 +249,10 @@ C_ENTRIES = {
     "mhm2_extract": "extract", "mhm2_merge": "sort", "mhm2_finalize": "finalize",
     "mhm2_compact": "compact", "mhm2_join": "join", "mhm2_join_sep": "join",
     "mhm2_scan_lanes": "scan", "mhm2_scan_packed": "scan", "mhm2_ssw": "ssw",
-    "mhm2_minimizer": "minimizer",
+    "mhm2_minimizer": "minimizer", "mhm2_range_cuts": "range_cuts",
 }
 # the kernels that phase 5's ladder launches
-LADDER_KERNELS = ("extract", "sort", "finalize", "compact", "join", "scan")
+LADDER_KERNELS = ("extract", "sort", "finalize", "compact", "join", "scan", "range_cuts")
 
 
 def log(*a):
@@ -642,6 +644,7 @@ def phase_kernels(results):
                (na + nb) * (2 * kw + 2), library_ms)
         del a, b, out
 
+    phase_range_cuts(record, gen)
     genome = phase_finalize(record, gen)
     # compact: 2-class at 36,700,160 rows, 3 lanes, emit class 0 (a fifth of
     # the rows), rows past the count unwritten, as the library call; int32
@@ -672,6 +675,52 @@ def phase_kernels(results):
     phase_ssw(record, gen)
     phase_minimizer(record, gen)
     phase_lookup(gen)
+    torch.cuda.empty_cache()
+
+
+def phase_range_cuts(record, gen):
+    """The range cuts of a ranged fold against their plain version (both on
+    the card): 12 runs of word 0 of (n, 2) words, 100,000,000 live rows,
+    Q = 17 (6M rows a range), a third of the runs 2^20 distinct keys; and,
+    for the record, the host path it replaces on the same runs (each word 0
+    copied out, np.quantile over their concatenation, np.searchsorted)."""
+    import numpy as np
+    import torch
+
+    from mhm2_proxy_tpu_torch.ops import sort
+
+    runs, counts = [], []
+    for j in range(12):
+        n = 100_000_000 // 12 + j
+        w = torch.randint(-2**31, 2**31, (n + 5, 2), dtype=torch.int32, device="cuda",
+                          generator=gen)
+        if j % 3 == 0:
+            w[:, 0] &= (1 << 20) - 1
+        w[:n, 0] = torch.sort(w[:n, 0].to(torch.int64) & 0xFFFFFFFF).values.to(torch.int32)
+        w[n:] = -1
+        runs.append(w[:, 0])
+        counts.append(n)
+    Q = 17
+    kern = lambda: sort._range_select_cuda(runs, counts, Q)  # noqa: E731
+    plain = lambda: sort._range_select_plain(runs, counts, Q)  # noqa: E731
+    (kc, ke), (pc, pe) = kern(), plain()
+    err = max(int((kc - pc).abs().max()), int((ke - pe).abs().max()))
+    t0 = time.perf_counter()
+    w0 = [x[:n].cpu().numpy().view(np.uint32) for x, n in zip(runs, counts)]
+    edges = np.quantile(np.concatenate(w0), np.arange(1, Q) / Q).astype(np.uint32)
+    host_cuts = [np.searchsorted(x, edges, "left") for x in w0]
+    host_s = time.perf_counter() - t0
+    del w0, host_cuts
+    # the dependent loads: one binary search a run at each of the 33 steps
+    # of an edge (32 bisection steps and the cut), 4 bytes each; the cuts
+    # written
+    loads = (Q - 1) * 33 * sum(max(1, n).bit_length() for n in counts)
+    io_bytes = 4 * loads + 8 * (len(runs) * (Q + 1) + Q - 1)
+    what = f"12 runs, {sum(counts)} rows of (n, 2) word 0, Q={Q}"
+    record("range_cuts", err, cuda_ms(kern), cuda_ms(plain), what, io_bytes, 3 * loads)
+    log(f"[kernel] range_cuts host path it replaces ({what}): copy, np.quantile and "
+        f"searchsorted {host_s:.3f} s")
+    del runs
     torch.cuda.empty_cache()
 
 
@@ -2712,6 +2761,7 @@ def main(argv):
             gen.manual_seed(20260817)
             record = make_recorder({})
             phase_extract(record, gen)
+            phase_range_cuts(record, gen)
             genome = phase_finalize(record, gen)
             phase_join(record, gen)
             phase_collapse_kernels(record, genome, gen)

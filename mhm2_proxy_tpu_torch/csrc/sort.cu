@@ -29,6 +29,19 @@
 // eight loads in flight a thread before their stores. The merge is stable
 // (A before B on equal keys), so it equals a stable lexsort of the
 // concatenation bit for bit at any lengths.
+//
+// range_cuts (mhm2_range_cuts): the key-range cuts of a ranged fold over R
+// sorted runs, which replaces no TPU kernel: the reference copies every
+// run's word 0 to the host for numpy's quantile and searchsorted
+// (mhm2_proxy_tpu/kcount/kmer_store.py:476-495). It generalises
+// merge_partition's co-rank search from two runs to R, searching by value:
+// one warp an edge q = 1 .. Q - 1 bisects the 32-bit key values for the
+// smallest v whose count of rows <= v over every run passes the rank
+// t_q = floor((N - 1) q / Q) (numpy's "lower" order statistic), the warp's
+// lanes taking the runs, one binary search each; run j's cut is then its
+// count of rows < v, so every row of a key falls in one range. What bounds
+// it: dependent loads, ~32 x log2(rows) a run an edge, a fraction of a
+// millisecond; no column leaves the card.
 #include "common.cuh"
 
 namespace {
@@ -197,6 +210,66 @@ int launch(const MergeDesc& d, void* splits, int64_t n_splits, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// the range cuts' runs, by value (pointer, element stride, live rows) in
+// the kernel's 4 KB of parameters; ops/sort.py's RANGE_MAX_RUNS
+constexpr int kRangeMaxParts = 160;
+constexpr int kRangeWarps = 8;  // edges a block, one a warp
+
+struct RangeDesc {
+  const uint32_t* p[kRangeMaxParts];
+  int64_t stride[kRangeMaxParts];
+  int32_t n[kRangeMaxParts];
+  int parts, ranges;
+  int64_t total;
+};
+
+// rows of run j whose key is <= v (kUpper) or < v
+template <bool kUpper>
+__device__ __forceinline__ int64_t rank_in_run(const RangeDesc& d, int j, uint32_t v) {
+  const uint32_t* p = d.p[j];
+  const int64_t s = d.stride[j];
+  int64_t lo = 0, hi = d.n[j];
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    const uint32_t x = p[mid * s];
+    if (kUpper ? x <= v : x < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kRangeWarps * 32)
+    range_cuts_kernel(const __grid_constant__ RangeDesc d, int64_t* __restrict__ cuts,
+                      int64_t* __restrict__ edges) {
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kRangeWarps + (threadIdx.x >> 5) + 1;
+  if (q >= d.ranges) return;  // the whole warp
+  const int64_t row = d.ranges + 1;
+  uint32_t v = 0;
+  if (d.total > 0) {
+    const long long t = (d.total - 1) * q / d.ranges;
+    uint32_t lo = 0, hi = 0xFFFFFFFFu;  // the answer lies in [lo, hi]
+    while (lo < hi) {
+      const uint32_t mid = lo + ((hi - lo) >> 1);
+      long long c = 0;
+      for (int j = lane; j < d.parts; j += 32) c += rank_in_run<true>(d, j, mid);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xFFFFFFFFu, c, o);
+      if (c > t) hi = mid;
+      else lo = mid + 1;
+    }
+    v = lo;
+  }
+  for (int j = lane; j < d.parts; j += 32) {
+    cuts[j * row + q] = rank_in_run<false>(d, j, v);
+    if (q == 1) {
+      cuts[j * row] = 0;
+      cuts[j * row + d.ranges] = d.n[j];
+    }
+  }
+  if (lane == 0) edges[q - 1] = v;
+}
+
 }  // namespace
 
 extern "C" int mhm2_merge_tile_rows(int kw) { return tile_rows(kw); }
@@ -240,4 +313,31 @@ extern "C" int mhm2_merge(const void* const* a, const int64_t* a_stride, int64_t
     case 8: return launch<8>(d, splits, n_splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// lanes: n_parts runs' word 0 (pointer, element stride), each sorted as
+// u32, with counts[j] live rows (< 2^31); n_ranges = Q >= 2. cuts: (n_parts,
+// Q + 1) int64, run j's row offsets of the Q ranges (0 and counts[j] at the
+// ends); edges: (Q - 1) int64, the key each inner cut starts at (0 when no
+// run has a row).
+extern "C" int mhm2_range_cuts(const void* const* lanes, const int64_t* strides,
+                               const int64_t* counts, int n_parts, int n_ranges, void* cuts,
+                               void* edges, void* stream) {
+  MHM2_REQUIRE(n_parts >= 1 && n_parts <= kRangeMaxParts && n_ranges >= 2);
+  RangeDesc d = {};
+  int64_t total = 0;
+  for (int j = 0; j < n_parts; ++j) {
+    MHM2_REQUIRE(counts[j] >= 0 && counts[j] < (1ll << 31));
+    d.p[j] = (const uint32_t*)lanes[j];
+    d.stride[j] = strides[j];
+    d.n[j] = (int32_t)counts[j];
+    total += counts[j];
+  }
+  d.parts = n_parts;
+  d.ranges = n_ranges;
+  d.total = total;
+  const int blocks = (n_ranges - 1 + kRangeWarps - 1) / kRangeWarps;
+  range_cuts_kernel<<<blocks, kRangeWarps * 32, 0, (cudaStream_t)stream>>>(d, (int64_t*)cuts,
+                                                                            (int64_t*)edges);
+  return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ import torch
 from ..constants import EXT_X, MAX_KMER_COUNT, words32_for_k
 from ..ops import bitkmer as bk
 from ..ops import count as C
-from ..ops.sort import merge_sorted_lanes
+from ..ops.sort import merge_sorted_lanes, range_cuts
 from ..ops.u32 import ONES, lexsort_lanes, narrow, rows_equal_next, widen
 from ..utils import trace
 
@@ -121,28 +121,6 @@ def render_kmer_dump(words, count, left, right, k: int) -> bytes:
     out[base + 3] = ext_lut[np.minimum(np.asarray(right), 7)]
     out[base + 4] = ord("\n")
     return out.tobytes()
-
-
-def _host_u32(x) -> np.ndarray:
-    """A device int32 lane (u32 bits) as a host uint32 array: unsigned order
-    for quantiles, searchsorted and comparisons."""
-    trace.count("d2h_bytes", x.numel() * 4)
-    return x.cpu().numpy().view(np.uint32)
-
-
-def _range_cuts(w0_parts, target_rows: int):
-    """Key-range cuts of sorted runs: Q = ceil(rows / target_rows) (>= 2)
-    ranges split at quantile edges of every live word 0 (as uint32), and,
-    for each part, the row offsets of those edges (reference
-    kmer_store.py:476-495). Every key's rows land in one range."""
-    total = sum(len(w0) for w0 in w0_parts)
-    w0_all = np.concatenate(w0_parts) if total else np.zeros(1, np.uint32)
-    Q = max(2, -(-total // target_rows))
-    edges = np.quantile(w0_all, np.arange(1, Q) / Q).astype(np.uint64)
-    edges = np.minimum(edges, 0xFFFFFFFF).astype(np.uint32)
-    cuts = [np.concatenate([[0], np.searchsorted(w0, edges, "left"), [len(w0)]]).astype(np.int64)
-            for w0 in w0_parts]
-    return Q, cuts
 
 
 def _combine_pieces(pieces):
@@ -339,24 +317,23 @@ class KmerCountStore:
 
     def _final_fold_ranged(self, purge: bool):
         """Range-partitioned final fold over the sorted split runs: every run
-        part is lexsorted, so cutting the key space at word-0 quantile edges
-        puts each key's rows in exactly one range; each range folds on its
-        own (final_fold_runs over plain slices of the live rows), and the
+        part is lexsorted, so cutting the key space at word-0 order
+        statistics (ops/sort.py::range_cuts, on the runs' device) puts each
+        key's rows in exactly one range; each range folds on its own
+        (final_fold_runs over plain slices of the live rows), and the
         pieces, trimmed to their live rows, concatenate in key order."""
         runs, self.runs = self.runs, []
         with trace.span("finalize.cuts"):
-            w0_parts = []
-            for r in runs:
-                w0_parts.append(_host_u32(r[0][: int(r[4]), 0]))
-                w0_parts.append(_host_u32(r[5][: int(r[7]), 0]))
-            Q, cuts = _range_cuts(w0_parts, self.RANGED_FOLD_TARGET_ROWS)
+            Q, cuts = range_cuts([w[:, 0] for r in runs for w in (r[0], r[5])],
+                                 [n for r in runs for n in (r[4], r[7])],
+                                 self.RANGED_FOLD_TARGET_ROWS)
         pieces = []
         for q in range(Q):
             with trace.span("finalize.fold"):
                 range_runs = []
                 for j, r in enumerate(runs):
-                    m0, m1 = int(cuts[2 * j][q]), int(cuts[2 * j][q + 1])
-                    s0, s1 = int(cuts[2 * j + 1][q]), int(cuts[2 * j + 1][q + 1])
+                    m0, m1 = cuts[2 * j][q], cuts[2 * j][q + 1]
+                    s0, s1 = cuts[2 * j + 1][q], cuts[2 * j + 1][q + 1]
                     range_runs.append(tuple(x[m0:m1] for x in r[:4]) + (m1 - m0,)
                                       + tuple(x[s0:s1] for x in r[5:7]) + (s1 - s0,))
                 piece = C.final_fold_runs(range_runs, dmin_thres=self.dmin_thres, purge=purge)
@@ -381,12 +358,11 @@ class KmerCountStore:
                 tuple(x[: max(cn, 1)] for x in c[:4]) + (cn,), self.dmin_thres,
             )
         with trace.span("finalize.cuts"):
-            Q, (rcut, ccut) = _range_cuts(
-                [_host_u32(r[0][:rn, 0]), _host_u32(c[0][:cn, 0])], self.RANGED_FOLD_TARGET_ROWS
-            )
+            Q, (rcut, ccut) = range_cuts([r[0][:, 0], c[0][:, 0]], [rn, cn],
+                                         self.RANGED_FOLD_TARGET_ROWS)
         pieces = []
         for q in range(Q):
-            r0, r1, c0, c1 = int(rcut[q]), int(rcut[q + 1]), int(ccut[q]), int(ccut[q + 1])
+            r0, r1, c0, c1 = rcut[q], rcut[q + 1], ccut[q], ccut[q + 1]
             piece = _ctg_rules_finalize_piece(
                 tuple(x[r0:r1] for x in r[:4]) + (r1 - r0,),
                 tuple(x[c0:c1] for x in c[:4]) + (c1 - c0,), self.dmin_thres,

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "mhm2_extract": [P, P, P, I64, I32, I32, I32, P, I32, P],
     "mhm2_merge": [P, P, I64, P, P, I64, P, P, I32, I32, P, I64, P],
     "mhm2_merge_tile_rows": [I32],
+    "mhm2_range_cuts": [P, P, P, I32, I32, P, P, P],
     "mhm2_finalize": [P, I32, I32, I64, U32, I32, I32, I32, P, P, P, P, I64, P, P, I64, P],
     "mhm2_compact": [P, P, I32, P, I32, I64, I32, I32, P, P, P, P, P, P, P, I32, P, P, I64, P,
                      I64, P],

@@ -15,7 +15,8 @@ import ctypes
 
 import torch
 
-# kernel -> (CUDA source, the TPU kernel it replaces)
+# kernel -> (CUDA source, what it replaces in the reference: a TPU kernel,
+# or, for range_cuts, the host's numpy quantile of the ranged fold)
 KERNELS = {
     "extract": ("mhm2_proxy_tpu_torch/csrc/extract.cu",
                 "mhm2_proxy_tpu/ops/pallas_extract.py:179"),
@@ -33,6 +34,8 @@ KERNELS = {
             "mhm2_proxy_tpu/ops/pallas_ssw.py:108"),
     "minimizer": ("mhm2_proxy_tpu_torch/csrc/minimizer.cu",
                   "mhm2_proxy_tpu/ops/pallas_minimizer.py:179"),
+    "range_cuts": ("mhm2_proxy_tpu_torch/csrc/sort.cu",
+                   "mhm2_proxy_tpu/kcount/kmer_store.py:476"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

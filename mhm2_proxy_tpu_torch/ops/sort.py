@@ -10,12 +10,19 @@ consumers never observe (packed rows are all key, and the join and ctg
 rules are order-free within a key). The output has len(a) + len(b) rows.
 The CUDA kernel is csrc/sort.cu (a co-rank partition launch, then a merge
 of each tile in shared memory); the plain version is concat + lexsort.
+
+range_cuts cuts R sorted runs into key ranges for a ranged fold, at order
+statistics of their word 0 over all runs (csrc/sort.cu's mhm2_range_cuts,
+one launch; the plain version bisects the same values with searchsorted).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..utils import trace
 from . import kernels
 from .u32 import lexsort_lanes, widen
 
@@ -96,3 +103,92 @@ def _merge_cuda(a_lanes, b_lanes, kw, as_words):
     kernels.check(rc, "sort")
     kernels.count_launch("sort")
     return result
+
+
+def range_cuts(w0_lanes, counts, target_rows: int):
+    """Key-range cuts of sorted runs for a ranged fold: Q = max(2,
+    ceil(N / target_rows)) ranges over the N live rows, and for each run the
+    Q + 1 row offsets of the ranges ((Q, cuts), cuts[j] a list of ints). The
+    inner cuts sit at the runs' word 0 (lanes as u32, any stride, counts[j]
+    live rows, an int or a 0-dim tensor) where the rank
+    floor((N - 1) q / Q) falls in their union, at the first row of that key,
+    so every key's rows land in one range. At most two host syncs: the
+    counts held on the device, and the cuts."""
+    lanes = tuple(w0_lanes)
+    counts = _host_counts(counts)
+    Q = max(2, -(-sum(counts) // target_rows))
+    cuts = range_select(lanes, counts, Q)[0].cpu()
+    trace.count("d2h_bytes", cuts.numel() * cuts.element_size())
+    trace.count("parts", len(lanes))
+    trace.count("ranges", Q)
+    return Q, cuts.tolist()
+
+
+def _host_counts(counts):
+    """The counts as ints, those held in tensors read in one copy."""
+    held = [c for c in counts if isinstance(c, torch.Tensor)]
+    read = iter(torch.stack([c.reshape(()).to(torch.int64) for c in held]).tolist()
+                if held else ())
+    return [next(read) if isinstance(c, torch.Tensor) else int(c) for c in counts]
+
+
+def range_select(w0_lanes, counts, Q: int):
+    """The selection of range_cuts for Q ranges, on the lanes' device:
+    ((R, Q + 1) int64 cuts, (Q - 1,) int64 edges: the key each inner cut
+    starts at, 0 when no run has a row). counts are host ints."""
+    lanes, counts = tuple(w0_lanes), [int(n) for n in counts]
+    if not lanes or len(counts) != len(lanes) or Q < 2:
+        raise ValueError(f"range cuts: {len(lanes)} lanes, {len(counts)} counts, Q={Q}")
+    for i, (x, n) in enumerate(zip(lanes, counts)):
+        kernels.require_lane(x, f"range cuts lane {i}")
+        if not 0 <= n <= x.shape[0]:
+            raise ValueError(f"range cuts: lane {i} has {x.shape[0]} rows, count {n}")
+    if kernels.use_kernel(*lanes):
+        return _range_select_cuda(lanes, counts, Q)
+    return _range_select_plain(lanes, counts, Q)
+
+
+def _range_select_plain(lanes, counts, Q):
+    dev = lanes[0].device
+    runs = [widen(x[:n]) for x, n in zip(lanes, counts)]
+    N = sum(counts)
+    q = torch.arange(1, Q, dtype=torch.int64, device=dev)
+    lo = torch.zeros_like(q)
+    if N:
+        # the smallest v whose rows <= v over every run pass the rank t
+        t = (N - 1) * q // Q
+        hi = torch.full_like(q, 0xFFFFFFFF)
+        for _ in range(32):
+            mid = (lo + hi) >> 1
+            c = sum(torch.searchsorted(r, mid, right=True) for r in runs if r.numel())
+            big = c > t
+            hi = torch.where(big, mid, hi)
+            lo = torch.where(big, lo, mid + 1)
+    cuts = torch.stack([
+        torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                   torch.searchsorted(r, lo) if r.numel() else torch.zeros_like(lo),
+                   torch.tensor([n], device=dev)])
+        for r, n in zip(runs, counts)])
+    return cuts, lo
+
+
+# the runs the range cuts kernel takes (csrc/sort.cu's kRangeMaxParts: they
+# travel by value, as kernel parameters)
+RANGE_MAX_RUNS = 160
+
+
+def _range_select_cuda(lanes, counts, Q):
+    R = len(lanes)
+    if R > RANGE_MAX_RUNS or max(counts) >= 1 << 31:
+        raise ValueError(f"range cuts kernel takes <= {RANGE_MAX_RUNS} runs of < 2^31 rows: "
+                         f"{R} runs, {max(counts)} rows")
+    dev = lanes[0].device
+    cuts = torch.empty((R, Q + 1), dtype=torch.int64, device=dev)
+    edges = torch.empty((Q - 1,), dtype=torch.int64, device=dev)
+    rc = kernels.lib().mhm2_range_cuts(
+        kernels.ptrs(lanes), kernels.strides(lanes), (ctypes.c_int64 * R)(*counts), R, Q,
+        cuts.data_ptr(), edges.data_ptr(), kernels.stream(dev),
+    )
+    kernels.check(rc, "range_cuts")
+    kernels.count_launch("range_cuts")
+    return cuts, edges

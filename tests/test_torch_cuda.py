@@ -20,7 +20,7 @@ from mhm2_proxy_tpu_torch.constants import MAX_KMER_COUNT, words32_for_k
 from mhm2_proxy_tpu_torch.ops import (compact, extract, finalize, join, kernels, lookup, scan,
                                       sort, ssw)
 from mhm2_proxy_tpu_torch.ops.u32 import lexsort_lanes
-from torch_common import SCORING_WIDE, SCORINGS_ALL
+from torch_common import RANGE_CUT_CASES, SCORING_WIDE, SCORINGS_ALL, range_cut_runs
 
 # the ssw kernel's strip width (csrc/ssw.cu's kStrip), for shapes at its edges
 SSW_STRIP = 32
@@ -725,6 +725,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     lens = torch.full((2,), 3, dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="ssw kernel launch failed"):  # the best-cell key
         ssw.sw_align_ends(codes, lens, codes, lens, match=1 << 25)
+    with pytest.raises(ValueError, match="range cuts kernel takes <= 160 runs"):
+        sort.range_select((x,) * 161, [8] * 161, 4)
 
 
 def _compact_case(rng, n, n_lanes):
@@ -1106,3 +1108,85 @@ def test_cli_shards_2(cuda, tmp_path):
         finals[dev] = open(f"{out}/final_assembly.fasta").read()
         assert (kernels.launches()["minimizer"] > 0) == (dev == "cuda")
     assert finals["cuda"] == finals["cpu"] and finals["cuda"].count(">") >= 1
+
+
+@pytest.mark.parametrize("R,Q", [(2, 2), (7, 17), (33, 9), (40, 64)])
+@pytest.mark.parametrize("case", RANGE_CUT_CASES)
+def test_range_cuts(cuda, case, R, Q):
+    """mhm2_range_cuts against the plain selection: the same cuts and edges
+    bit for bit, one launch."""
+    seed = R * 131 + Q + RANGE_CUT_CASES.index(case)
+    lanes, counts, _ = range_cut_runs(case, np.random.default_rng(seed), R=R, rows=700)
+    on_card = range_cut_runs(case, np.random.default_rng(seed), R=R, rows=700, device=cuda)[0]
+    counts = [int(n) for n in counts]
+    got = _launched("range_cuts", lambda: sort.range_select(on_card, counts, Q))
+    _same(got, sort.range_select(lanes, counts, Q))
+
+
+def test_range_cuts_100m_rows(cuda):
+    """100M rows in 12 runs of word 0 of (n, 2) words, every key value and
+    heavy duplicates, Q = 17 (the ranged fold's shape at 100M rows: 6M a
+    range): the kernel's cuts and edges equal the plain version's, and
+    range_cuts reads the counts from the card in one copy."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    runs, counts = [], []
+    for j in range(12):
+        n = 100_000_000 // 12 + j
+        hi = 1 << 32 if j % 3 else 1 << 20
+        w = torch.randint(0, hi, (n + 5, 2), dtype=torch.int64, device=cuda, generator=gen)
+        w[:n, 0] = torch.sort(w[:n, 0]).values
+        w[n:] = 0xFFFFFFFF
+        runs.append(((w ^ 0x80000000) - 0x80000000).to(torch.int32)[:, 0])
+        counts.append(n)
+        del w
+    got = _launched("range_cuts", lambda: sort.range_select(runs, counts, 17))
+    want = sort.range_select([x.cpu() for x in runs], counts, 17)
+    _same(got, want)
+    Q, cuts = sort.range_cuts(runs, [torch.tensor(n, device=cuda) for n in counts], 6_000_000)
+    assert Q == 17 and cuts == want[0].tolist()
+
+
+@pytest.mark.parametrize("k", [21, 77])
+def test_ranged_store_finalize(cuda, k):
+    """A KmerCountStore that collapses every block and folds and applies the
+    contig rules by key range: the card's table equals its CPU run's, the
+    cuts launched on the card."""
+    from mhm2_proxy_tpu_torch.kcount import KmerCountStore
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 8000).astype(np.uint8)
+
+    def windows(n, lo, L, err):
+        lens = rng.integers(lo, L + 1, n).astype(np.int32)
+        start = rng.integers(0, len(genome) - L, n)
+        codes = genome[start[:, None] + np.arange(L)]
+        codes = np.where(rng.random(codes.shape) < err, rng.integers(0, 5, codes.shape), codes)
+        codes = np.where(np.arange(L) < lens[:, None], codes, 4).astype(np.uint8)
+        return codes, lens
+
+    blocks = []
+    for _ in range(4):
+        codes, lens = windows(100, k + 5, k + 80, 0.01)
+        blocks.append((codes, rng.random(codes.shape) > 0.05, lens))
+    ctgs = []
+    for _ in range(2):
+        codes, lens = windows(6, k + 2, 320, 0.0)
+        ctgs.append((codes, lens, rng.integers(1, 40, 6).astype(np.int32)))
+    tables = {}
+    for dev in ("cpu", "cuda"):
+        st = KmerCountStore(k, device=dev, raw_budget_bytes=1)
+        st.RANGED_FOLD_MIN_ROWS = 0
+        st.RANGED_FOLD_TARGET_ROWS = 4096
+        for blk in blocks:
+            st.add_reads_block(*blk)
+        for cb in ctgs:
+            st.add_ctgs_block(*cb)
+        before = kernels.launches()["range_cuts"]
+        tables[dev] = st.finalize().to_numpy()
+        assert st.stats["read_pieces"] >= 3 and st.stats["ctg_pieces"] >= 3, st.stats
+        assert kernels.launches()["range_cuts"] - before == (2 if dev == "cuda" else 0)
+    n = int(tables["cpu"][4])
+    assert n > 0 and int(tables["cuda"][4]) == n
+    for g, w in zip(tables["cuda"][:4], tables["cpu"][:4]):
+        assert np.array_equal(g[:n], w[:n])

@@ -74,8 +74,9 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     lens = torch.full((8,), 40, dtype=torch.int32)
     ssw.sw_align(codes, lens, codes, lens)
     minimizer.minimizer_targets(codes, 21, 15, 4)
+    sort.range_cuts((merged[0], run[0]), (merged[0].shape[0], torch.tensor(3)), 16)
     assert kernels.launches() == {"extract": 0, "sort": 0, "finalize": 0, "compact": 0, "join": 0,
-                                  "scan": 0, "ssw": 0, "minimizer": 0}
+                                  "scan": 0, "ssw": 0, "minimizer": 0, "range_cuts": 0}
 
 
 def test_unported_paths_raise():

@@ -9,6 +9,7 @@ import torch
 
 from mhm2_proxy_tpu.ops.pallas_sort import merge_sorted_lanes_padded, merge_sorted_lanes_tiled
 from mhm2_proxy_tpu_torch.ops import sort as PS
+from torch_common import RANGE_CUT_CASES, range_cut_runs
 
 
 def _run(rng, n, n_lanes, kw, sent=0, dup_from=None):
@@ -114,3 +115,38 @@ def test_merge_as_words():
     assert words.shape == (511, 3) and words.is_contiguous() and len(pay) == 2
     plain = _np(PS.merge_sorted_lanes(_lanes(a), _lanes(b), 3))
     assert np.array_equal(np.concatenate([_np(tuple(words.T)), _np(pay)], 1), plain)
+
+
+@pytest.mark.parametrize("target", [1000, 4096, 1 << 20])
+@pytest.mark.parametrize("case", RANGE_CUT_CASES)
+def test_range_cuts_equal_numpy_order_statistics(case, target):
+    """range_cuts (plain version) against numpy over the union of the runs'
+    live word 0: Q = max(2, ceil(N / target)) and each run's cuts at
+    np.searchsorted(..., "left") of numpy's "lower" order statistics at
+    rank floor((N - 1) q / Q), which on these runs are
+    np.quantile(method="lower")'s edges too. The ranks are taken in
+    integers: np.quantile computes (N - 1) q / Q in float64 and can land
+    one rank low where the product is a whole number (N = 579, Q = 17,
+    q = 13). Every key's rows fall in one range, and the ranges tile each
+    run's live rows."""
+    rng = np.random.default_rng(RANGE_CUT_CASES.index(case) * 7 + target)
+    lanes, counts, words = range_cut_runs(case, rng)
+    Q, cuts = PS.range_cuts(lanes, counts, target)
+    union = np.sort(np.concatenate(words))
+    N = len(union)
+    assert Q == max(2, -(-N // target)) and len(cuts) == len(lanes)
+    if N:
+        edges = union[(N - 1) * np.arange(1, Q) // Q]
+        assert np.array_equal(edges, np.quantile(union, np.arange(1, Q) / Q, method="lower"))
+    else:
+        edges = np.zeros(Q - 1, np.uint32)
+    for w, c in zip(words, cuts):
+        assert c == [0, *np.searchsorted(w, edges, "left").tolist(), len(w)]
+    # every key in one range: the ranges' key spans, over all runs, are disjoint
+    where = {}
+    for w, c in zip(words, cuts):
+        assert all(a <= b for a, b in zip(c, c[1:]))
+        for q in range(Q):
+            for key in np.unique(w[c[q]:c[q + 1]]):
+                assert where.setdefault(int(key), q) == q
+    assert len(where) == len(np.unique(union))

@@ -254,7 +254,10 @@ def test_run_pipeline_spans_and_the_timings_they_feed(fastq, tmp_path, monkeypat
     assert rows["ingest.merge"]["merged"] > 0
     assert rows["count.reads"]["raw_rows"] == sum(r["raw_rows"] for r in asm.round_stats.values())
     assert rows["count.reads"]["h2d_bytes"] > 0 and rows["count.contigs"]["h2d_bytes"] > 0
-    assert rows["finalize.cuts"]["d2h_bytes"] > 0
+    # the cuts come back alone: R runs x (Q + 1) int64 a call
+    cuts = rows["finalize.cuts"]
+    assert cuts["parts"] >= 2 * cuts["calls"] and cuts["ranges"] >= 2 * cuts["calls"]
+    assert 0 < cuts["d2h_bytes"] <= 8 * cuts["parts"] * (cuts["ranges"] + cuts["calls"])
     assert rows["traverse.stitch.paths"]["paths_kept"] == sum(
         r["contigs"] for r in asm.round_stats.values())
     # the layers' children sit in their layer

@@ -1,6 +1,7 @@
 """Shared pieces of the port's tests (imports torch and pytest, never jax, so
 the card-only tests and chip_smoke.py can use it too)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +18,44 @@ SCORINGS_ALL = [
 # substitution (it permutes score bytes when match, -mismatch and -ambiguity
 # all fit one)
 SCORING_WIDE = dict(match=2, mismatch=200, gap_open=3, gap_extend=1, ambiguity=2)
+
+
+# the range cuts' cases: R sorted runs of word 0 (u32), drawn by
+# range_cut_runs
+RANGE_CUT_CASES = ("top_bit", "duplicates", "all_equal", "empty_parts", "no_rows", "strided")
+
+
+def range_cut_runs(case, rng, R=4, rows=3000, W=3, device="cpu"):
+    """(lanes, counts, words): R runs as int32 column-0 views of (n, W)
+    row-major words sorted on word 0 as u32, whose rows past counts[j] are
+    all-ones sentinels (counts[j] live rows); words[j] is run j's live word
+    0 as a numpy uint32 array. top_bit: about half the keys with bit 31
+    set; duplicates: 50 distinct keys; all_equal: one key; empty_parts:
+    every other run has no live row; no_rows: none has; strided: W = 5
+    words and sentinel tails, counts given as 0-dim tensors. The words
+    lie on `device`."""
+    lanes, counts, words = [], [], []
+    for j in range(R):
+        n = int(rng.integers(rows // 2, rows + 1))
+        if case == "no_rows" or (case == "empty_parts" and j % 2 == 0):
+            n = 0
+        if case == "duplicates":
+            keys = rng.choice(rng.integers(0, 1 << 32, 50, dtype=np.uint64), n)
+        elif case == "all_equal":
+            keys = np.full(n, 0x9E3779B9, np.uint64)
+        else:
+            keys = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+            keys[: n // 2] |= 1 << 31
+        tail = int(rng.integers(1, 40)) if case == "strided" else 0
+        w = rng.integers(0, 1 << 32, (n + tail, 5 if case == "strided" else W), dtype=np.uint64)
+        w[:n, 0] = np.sort(keys)
+        w[n:] = 0xFFFFFFFF
+        t = torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+        lanes.append(t[:, 0])
+        counts.append(torch.tensor(n, dtype=torch.int32, device=device) if case == "strided"
+                      else n)
+        words.append(w[:n, 0].astype(np.uint32))
+    return lanes, counts, words
 
 
 @pytest.fixture(autouse=True, scope="module")
