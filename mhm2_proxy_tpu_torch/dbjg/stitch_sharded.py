@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..parallel import comm
-from ..parallel.comm import all_to_all
+from ..parallel.comm import TRAVERSE_EXCHANGE, all_to_all
 from ..parallel.sharded import _bucketize
 from .stitch import contigs_from_blob, render_contigs_blob
 
@@ -54,7 +54,8 @@ class _Exchange:
 
     def all_to_all(self, buckets, fill):
         self.bytes_moved += buckets.numel() * buckets.element_size()
-        return all_to_all(buckets, fill)
+        with comm.stage(TRAVERSE_EXCHANGE):
+            return all_to_all(buckets, fill)
 
     def route(self, payload, tgt, valid):
         """Send each valid state's payload row to shard tgt: (D, S*T2, R)
@@ -88,6 +89,11 @@ class _Exchange:
                 self.scatter_rows(ret[..., 2], ok, ret[..., 1], 0))
 
 
+def _any_rank(flag: bool) -> bool:
+    with comm.stage(TRAVERSE_EXCHANGE):
+        return comm.any_true(flag)
+
+
 def _stitch_states(x: _Exchange, uu, r_gid, r_port, r_ok, l_gid, l_port, l_ok,
                    first_b, last_b, count, rounds: int):
     """Per-state path assignment (reference stitch_sharded.py:40-244).
@@ -116,7 +122,7 @@ def _stitch_states(x: _Exchange, uu, r_gid, r_port, r_ok, l_gid, l_port, l_ok,
         i, changed = 0, True
         while changed and i < rounds:
             rn, rd = x.gather_pair(nxt, d, nxt)
-            changed = comm.any_true(bool((rd > 0).any()))
+            changed = _any_rank(bool((rd > 0).any()))
             nxt, d, i = rn, d + rd, i + 1
         return nxt, d, term, i
 
@@ -136,7 +142,7 @@ def _stitch_states(x: _Exchange, uu, r_gid, r_port, r_ok, l_gid, l_port, l_ok,
     while changed and i_min < rounds:
         rm, rn2 = x.gather_pair(mini, nx2, nx2)
         new_mini = torch.minimum(mini, rm)
-        changed = comm.any_true(bool((new_mini != mini).any()))
+        changed = _any_rank(bool((new_mini != mini).any()))
         mini, nx2, i_min = new_mini, rn2, i_min + 1
     # cut both direction-cycles at the leader node; emission takes the
     # port-1 start only, so each cycle yields one contig
@@ -162,7 +168,8 @@ def _stitch_states(x: _Exchange, uu, r_gid, r_port, r_ok, l_gid, l_port, l_ok,
     plen = d2 + 1
 
     # global path ids: exclusive scan of the per-shard emit counts
-    offset, n_emit = comm.exclusive_scan(emit.sum(1))
+    with comm.stage(TRAVERSE_EXCHANGE):
+        offset, n_emit = comm.exclusive_scan(emit.sum(1))
     rank = torch.where(emit, offset[:, None] + torch.cumsum(emit.to(torch.int64), 1) - 1,
                        -1).to(torch.int32)
 
@@ -258,7 +265,10 @@ def stitch_paths_sharded(table, edges: dict, k: int, stats: dict | None = None):
     blob = render_contigs_blob(plen, path, pos, base.to(torch.uint8), cnt, heads, fwd, k)
     head = np.array([n_mine], np.int64).tobytes()
     result = []
-    for got in comm.all_gather_bytes(head + blob.tobytes()):
+    payload = head + blob.tobytes()
+    with comm.stage(TRAVERSE_EXCHANGE):
+        gathered = comm.all_gather_bytes(payload)
+    for got in gathered:
         n = int(np.frombuffer(got[:8], np.int64)[0])
         result += contigs_from_blob(np.frombuffer(got[8:], np.uint8), n, k)
     if stats is not None:

@@ -13,12 +13,15 @@ rendered contigs to the host.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
 
 from ..ops import bitkmer as bk
+from ..ops.count import pow2_rows
 from ..parallel import comm
+from ..parallel.comm import TRAVERSE_EXCHANGE
 from ..parallel.sharded import ShardedTable, owner_shards, sharded_lookup
 from .stitch_sharded import stitch_paths_sharded
 from .traverse import term_stats_to_dict
@@ -67,10 +70,12 @@ def _edge_conditions(uu, b_rc, p_rc, a_first, a_last, r_found, b_left, b_right, 
         repeat = uu & found & self_hit
         return torch.stack([deadend.sum(), fork.sum(), conflict.sum(), repeat.sum()])
 
-    term_stats = comm.all_sum_tensor(torch.stack([
+    terms = torch.stack([
         _term(r_found, b_left, b_right, r_ok, b_gid == self_gid),
         _term(l_found, p_left, p_right, l_ok, p_gid == self_gid),
-    ]))
+    ])
+    with comm.stage(TRAVERSE_EXCHANGE):
+        term_stats = comm.all_sum_tensor(terms)
     edges = dict(
         uu=uu, r_gid=b_gid.to(torch.int32), r_port=b_rc.to(torch.int32), r_ok=r_ok,
         l_gid=p_gid.to(torch.int32), l_port=(~p_rc).to(torch.int32), l_ok=l_ok,
@@ -97,6 +102,26 @@ def build_edges_sharded(table: ShardedTable, k: int):
                             l_found, p_left, p_right, p_idx, b_shard, p_shard, table.shard0)
 
 
+def live_rows(table: ShardedTable) -> ShardedTable:
+    """The table cut to the power of two of the fullest shard's live rows
+    over every rank. A shard's rows past its n hold nothing, yet the
+    counter's table keeps the rows of every k-mer it saw before the purge
+    (16 times the live ones at k = 21 on the CAMI high-complexity cut), and
+    the edges' lookups and the stitch's states and buckets scale with the
+    rows. Node ids (shard * T + row) keep their order for any T that holds
+    the live rows, so the contigs, their ids and the cycles' cut points are
+    the whole table's; the stitch's round bound keeps bound_rows."""
+    n_loc = int(table.n.max())
+    with comm.stage(TRAVERSE_EXCHANGE):
+        n_max = comm.all_max(n_loc)
+    T = min(table.words.shape[1], pow2_rows(n_max))
+    if T == table.words.shape[1]:
+        return table
+    cut = lambda x: x[:, :T].contiguous()  # noqa: E731
+    return dataclasses.replace(table, words=cut(table.words), count=cut(table.count),
+                               left=cut(table.left), right=cut(table.right))
+
+
 def traverse_debruijn_graph_sharded(table: ShardedTable, k: int, stats: dict | None = None):
     """Full sharded traversal -> list of (seq, depth).
 
@@ -107,6 +132,7 @@ def traverse_debruijn_graph_sharded(table: ShardedTable, k: int, stats: dict | N
     traverse_sharded.py:133-141). No min_ctg_len: the reference's sharded
     branch renders every path."""
     t0 = time.perf_counter()
+    table = live_rows(table)
     edges, term_stats = build_edges_sharded(table, k)
     terms = term_stats_to_dict(term_stats)  # waits for the device
     edges_s = time.perf_counter() - t0

@@ -17,7 +17,8 @@ or a scheduler that exports the rendezvous variables (MHM2_TPU_NUM_PROCS,
 MHM2_TPU_PROC_ID, MHM2_TPU_COORDINATOR; launcher.detect_scheduler_env fills
 them from SLURM, MPI, PBS or LSF) makes main() join a process group first
 (parallel/multihost.py::init_multihost); the sharded store then spreads its
-shards over the processes.
+shards over the processes, each of which reads only its own byte range of
+the FASTQ, and rank 0 writes the output files.
 """
 
 from __future__ import annotations
@@ -151,13 +152,20 @@ def _run(opts: Options) -> Assembler:
                 asm.load_merged_reads(merged_ckpt)
                 log.info("[restart] reloaded merged reads checkpoint")
             else:
-                asm.load_reads(list(opts.reads))
+                # each rank of a sharded multi-process run ingests its own
+                # byte range, with read ids disjoint across ranks
+                rank, n_ranks = asm.read_split()
+                asm.load_reads(list(opts.reads), rank=rank, n_ranks=n_ranks)
                 if opts.unpaired:
                     from .io.fastq import FastqReader
 
                     for fname in opts.unpaired:
-                        r = FastqReader(fname)
+                        r = FastqReader(fname, rank=rank, n_ranks=n_ranks)
                         asm.add_unpaired(r.seqs, r.quals)
+                if asm.own_reads:
+                    from .parallel.multihost import check_read_id_disjointness
+
+                    check_read_id_disjointness(asm.packed_reads.id_span())
         log_module(log, "merge_reads", sp.seconds)
         if opts.checkpoint_merged and not reloaded_merged:
             asm.dump_merged_reads(merged_ckpt)
@@ -211,7 +219,7 @@ def _run(opts: Options) -> Assembler:
 
         if not opts.post_asm_only:
             asm.dump_contigs(os.path.join(out_dir, "final_assembly.fasta"))
-        if opts.gfa:
+        if opts.gfa and comm.rank() == 0:
             from .io.gfa import write_gfa2
 
             n_edges = write_gfa2(

@@ -8,6 +8,9 @@ per-contig depths (the jgi_summarize-style table of docs/mhm_guide.md:
 211-233). The index build, seed lookup, vote, window gather, alignment and
 traceback run as tensors on the assembler's device; the SAM text and the
 depth sums are rendered on the host, with the reference's exact bytes.
+Ranks that hold their own reads (Assembler.read_split) align them on their
+own devices; rank 0 writes the SAM records in rank order and the depths
+summed over the ranks.
 
 The reference builds the index with a Python loop per contig; here it is
 one batch over the concatenated contig codes, with every window that
@@ -18,6 +21,7 @@ the reference's first row).
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -27,6 +31,7 @@ from ..ops import bitkmer as bk
 from ..ops.lookup import table_lookup
 from ..ops.ssw import sw_align, sw_cigar_batch
 from ..ops.u32 import lexsort_perm
+from ..parallel import comm
 
 _ACGT = np.frombuffer(b"ACGTN", np.uint8)
 _SEED_FRACS = (0.5, 0.25, 0.75, 0.0, 1.0)  # by centrality: ties go to the middle
@@ -265,8 +270,12 @@ def post_asm_align(
     anchored = 0
     ident_sum = 0.0
     aligned_bases = np.zeros(len(contigs), np.int64)
-    sam = open(sam_fname, "w") if sam_fname else None
-    if sam:
+    # ranks that hold their own reads write their SAM records to a part file
+    ranks = comm.world() if getattr(asm, "own_reads", False) else 1
+    rank = comm.rank() if ranks > 1 else 0
+    part = f"{sam_fname}.rank{rank}" if sam_fname and rank else sam_fname
+    sam = open(part, "w") if part else None
+    if sam and not rank:
         sam.write("@HD\tVN:1.6\tSO:unknown\n")
         for cname, c in zip(cnames, contigs):
             sam.write(f"@SQ\tSN:{cname}\tLN:{len(c)}\n")
@@ -299,12 +308,18 @@ def post_asm_align(
     t1 = time.perf_counter()
     if sam:
         sam.close()
+    if ranks > 1:
+        tot, anchored = comm.all_sum(tot, anchored)
+        ident_sum = float(comm.all_sum_tensor(torch.tensor([ident_sum], dtype=torch.float64)))
+        aligned_bases = comm.all_sum_tensor(torch.from_numpy(aligned_bases)).numpy()
+        if sam_fname:
+            _gather_parts(sam_fname, rank, ranks)
     stats = dict(
         aligned_frac=anchored / max(tot, 1),
         mean_identity=ident_sum / max(anchored, 1),
         sampled_reads=tot,
     )
-    if abundance_fname:
+    if abundance_fname and not rank:
         with open(abundance_fname, "w") as f:
             f.write("contigName\tcontigLen\ttotalAvgDepth\n")
             for cidx, (cname, c) in enumerate(zip(cnames, contigs)):
@@ -315,6 +330,20 @@ def post_asm_align(
     tm["reads_aligned"] = anchored
     asm.log.info(f"post-asm-align: {stats}")
     return stats
+
+
+def _gather_parts(sam_fname: str, rank: int, ranks: int):
+    """Rank 0 appends the other ranks' part files to sam_fname, in rank
+    order, and removes them."""
+    comm.barrier()
+    if not rank:
+        with open(sam_fname, "ab") as out:
+            for r in range(1, ranks):
+                with open(f"{sam_fname}.rank{r}", "rb") as f:
+                    while chunk := f.read(1 << 24):
+                        out.write(chunk)
+                os.remove(f"{sam_fname}.rank{r}")
+    comm.barrier()
 
 
 def post_asm_align_stats(asm, sample_reads: int = 2048, k: int = 31):

@@ -10,18 +10,30 @@ collective goes through torch.distributed.
 What crosses ranks is counted in TRANSPORT: the bytes a rank sent to other
 ranks (its own chunk of an all-to-all stays home) and the collective calls,
 always; and, while meter_transport(True) is on, the seconds spent in the
-collectives. Timing one drains the device's queued work before and after
-it, so that the time is the transport's own; that serializes the stream
-around every collective, so it is off unless a measurement asks for it.
+collectives. Each collective also counts `sent_bytes` and `collectives` on
+the innermost open span of utils/trace.py, and an all-to-all its bytes as
+`alltoall_bytes` besides; its callers open `stage()` spans
+around them (`count.exchange`, `traverse.exchange`). Timing a collective, or
+recording a trace, drains the device's queued work before and after it, so
+that the time is the transport's own; that serializes the stream around
+every collective, so it is off unless a measurement asks for it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils import trace
+
+# the spans of the exchange's collectives (stage()) while counting and while
+# traversing
+COUNT_EXCHANGE = "count.exchange"
+TRAVERSE_EXCHANGE = "traverse.exchange"
 
 # bytes sent to other ranks, seconds in collectives (metered runs only),
 # collective calls
@@ -57,14 +69,40 @@ def _scalar_device() -> torch.device:
     return torch.device("cpu")
 
 
-class _timed:
-    """Counts one collective; while metering is on, times it, with the
-    device's queued work drained first."""
+def _drain() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
-    def __init__(self, tensor: torch.Tensor | None = None, sent: int = 0):
+
+@contextlib.contextmanager
+def stage(name: str, **counters):
+    """A span `name` over one step of the cross-rank exchange, with
+    `counters` on it; the collectives inside count their bytes and calls on
+    it. While a trace records in a multi-process run, the device's queued
+    work is drained before the span opens, so that it holds the step's own
+    time; otherwise it adds no sync."""
+    if active() and trace.is_recording():
+        _drain()
+    with trace.span(name) as sp:
+        for c, n in counters.items():
+            trace.count(c, n)
+        yield sp
+
+
+class _timed:
+    """Counts one collective (in TRANSPORT, and as `sent_bytes` and
+    `collectives` on the innermost span, an all-to-all's bytes also as
+    `alltoall_bytes`); while metering is on or a trace records, drains the
+    device's queued work before and after it, and while metering, times
+    it."""
+
+    def __init__(self, tensor: torch.Tensor | None = None, sent: int = 0,
+                 alltoall: bool = False):
         self.meter = _METER[0]
-        self.cuda = self.meter and tensor is not None and tensor.is_cuda
+        self.cuda = ((self.meter or trace.is_recording()) and tensor is not None
+                     and tensor.is_cuda)
         self.sent = sent
+        self.alltoall = alltoall
 
     def __enter__(self):
         if self.cuda:
@@ -78,6 +116,10 @@ class _timed:
             TRANSPORT["seconds"] += time.perf_counter() - self.t0
         TRANSPORT["bytes"] += self.sent
         TRANSPORT["calls"] += 1
+        trace.count("sent_bytes", self.sent)
+        if self.alltoall:
+            trace.count("alltoall_bytes", self.sent)
+        trace.count("collectives")
         return False
 
 
@@ -92,7 +134,7 @@ def exchange(send: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"exchange: leading axis {send.shape[0]} for {W} ranks")
     send = send.contiguous()
     recv = torch.empty_like(send)
-    with _timed(send, send.numel() * send.element_size() * (W - 1) // W):
+    with _timed(send, send.numel() * send.element_size() * (W - 1) // W, alltoall=True):
         dist.all_to_all_single(recv, send)
     return recv
 
@@ -114,7 +156,7 @@ def exchange_rows(send: torch.Tensor, fill: torch.Tensor):
     n_in = fill_in.reshape(world(), -1).sum(1).tolist()
     got = torch.empty((sum(n_in), *send.shape[lead + 1:]), dtype=send.dtype, device=send.device)
     sent = (sum(n_out) - n_out[rank()]) * rows[:1].numel() * rows.element_size()
-    with _timed(send, sent):
+    with _timed(send, sent, alltoall=True):
         dist.all_to_all_single(got, rows.contiguous(), output_split_sizes=n_in,
                                input_split_sizes=n_out)
     recv = torch.zeros(send.shape, dtype=send.dtype, device=send.device)

@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from ..ops.u32 import narrow, widen
 from . import comm
+from .comm import COUNT_EXCHANGE
 from .sharded import RecordFns, ShardedCounter, _bucketize, _presum_duplicates
 
 MAX_HOSTS = 256  # the target host rides in 8 spare meta bits
@@ -115,6 +116,39 @@ def host_byte_ranges(file_size: int, n_hosts: int) -> list[tuple[int, int]]:
         (h * per, file_size if h == n_hosts - 1 else (h + 1) * per)
         for h in range(n_hosts)
     ]
+
+
+def interleaved_pair_range(fname: str, rank: int, n_ranks: int) -> tuple[int, int]:
+    """This rank's byte range of an interleaved FASTQ, cut only between
+    pairs (the interleaved role of the reference's per-rank offset seeking,
+    fastq.cpp:399-455): rank r's first record is the first mate 1 that
+    starts at or after size * r / n_ranks, a record whose successor shares
+    its name. A range (lo, hi) holds the records that start in (lo, hi]
+    (io/stream.py's resync; 0 starts at the file's first byte), so each cut
+    sits on the byte before its pair's first record. Every rank computes
+    every cut alone, and neighbours agree."""
+    from ..io.fastq import normalize_fq_name
+    from ..io.stream import _scan_records
+
+    size = os.path.getsize(fname)
+
+    def cut(r: int) -> int:
+        if r <= 0:
+            return 0
+        if r >= n_ranks:
+            return size
+        recs = _scan_records(fname, max(size * r // n_ranks - 1, 0))
+        first, second = next(recs, None), next(recs, None)
+        if first is None:
+            return size
+        if second is not None:
+            a, b = normalize_fq_name(first[1]), normalize_fq_name(second[1])
+            if a is None or b is None or a[0] != b[0]:
+                first = second  # the first record found is a mate 2
+        return first[0] - 1 if first[0] > 0 else 0
+
+    lo, hi = cut(rank), cut(rank + 1)
+    return lo, max(lo, hi)
 
 
 def min_sum_max(value: float) -> dict:
@@ -231,11 +265,13 @@ class HierarchicalCounter(ShardedCounter):
         del rows, th, va
         send = bucketsB.view(Hl, D, W, Hl, D * cap, R).permute(2, 3, 1, 0, 4, 5)
         del bucketsB
+        n_over = int(overA.sum())
+        n_sent = int(valid.sum()) - n_over
         # (W_src, Hl_dst, D, Hl_src, D * cap, R)
-        recv = comm.exchange_rows(send, fill.view(Hl, D, W, Hl).permute(2, 3, 1, 0))[0]
+        with comm.stage(COUNT_EXCHANGE, records=n_sent):
+            recv = comm.exchange_rows(send, fill.view(Hl, D, W, Hl).permute(2, 3, 1, 0))[0]
         del send
         recv = recv.permute(1, 2, 0, 3, 4, 5).reshape(n_loc, H * D * cap, R)
         # the leftovers' global targets, rebuilt from the host bits
         g = torch.where(lv, self._get_host(lp, fns) * D + lt_dev, S)
-        n_over = int(overA.sum())
-        return recv, int(valid.sum()) - n_over, n_over, n_comb, (lp, g, lv)
+        return recv, n_sent, n_over, n_comb, (lp, g, lv)

@@ -40,8 +40,9 @@ from ..ops.scan import group_sums_scan_lanes
 from ..ops.supermer import SMAX, build_supermers, expand_supermers, record_kmers, supermer_layout
 from ..ops.u32 import ONES, lexsort_perm, narrow, u32, widen
 from ..ops.u64 import umod
+from ..utils import trace
 from . import comm
-from .comm import all_to_all
+from .comm import COUNT_EXCHANGE, TRAVERSE_EXCHANGE, all_to_all
 
 
 def owner_shards(words, k: int, n_shards: int):
@@ -199,7 +200,9 @@ def _record_fns(k: int, n_route: int, use_supermers: bool, ctg_mode: bool):
             S, M, _R = recv.shape
             n = record_kmers(recv.reshape(-1, R), k, SMAX).view(S, M)
             live = n > 0
-            n_max, live_max = comm.all_max(int(n.sum(1).max()), int(live.sum(1).max()))
+            n_sum, n_live = int(n.sum(1).max()), int(live.sum(1).max())
+            with comm.stage(COUNT_EXCHANGE):
+                n_max, live_max = comm.all_max(n_sum, n_live)
             need = C.pow2_rows(n_max)
             M_e = min(M, max(live_max, -(-need // per_record), 1))
 
@@ -319,7 +322,9 @@ class ShardedCounter:
         SB, L = np.asarray(codes).shape
         if SB % D:
             raise ValueError(f"a block's {SB} rows do not divide over {D} shards")
-        if comm.all_max(SB, L, -SB, -L) != [SB, L, -SB, -L]:
+        with comm.stage(COUNT_EXCHANGE):
+            agreed = comm.all_max(SB, L, -SB, -L) == [SB, L, -SB, -L]
+        if not agreed:
             raise ValueError(f"the ranks' blocks differ in shape (this rank's: {SB} x {L})")
         B, P = SB // D, L - k + 1
         # the cap is in k-mers; supermers convert it to records (reference
@@ -344,19 +349,31 @@ class ShardedCounter:
         # spill rounds: re-exchange the overflowed rows until all are placed
         # (lossless under any skew: every round ships cap rows per over-full
         # destination), every rank while any rank has some
-        while comm.all_sum(n_over) > 0:
+        while self._spill_pending(n_over):
             self.spill_rounds += 1
             n_sent, n_over, n_comb, left = self._exchange(*left, cap, fns)
             self._account(0, n_sent, n_over, n_comb)
+
+    @staticmethod
+    def _spill_pending(n_over: int) -> bool:
+        """Whether any rank has rows left over; a spill round counts on the
+        exchange's span."""
+        with comm.stage(COUNT_EXCHANGE):
+            more = comm.all_sum(n_over) > 0
+            if more:
+                trace.count("spill_rounds")
+        return more
 
     def _route(self, payload, target, valid, cap: int, fns: RecordFns):
         """Bucketize + all_to_all: returns (what each local shard received
         (D, S * cap, R), rows sent, rows left over, rows collapsed on the
         way, the leftovers)."""
         buckets, n_over, left, fill = _bucketize(payload, target, valid, self.S, cap)
-        recv = all_to_all(buckets, fill)[0].view(self.n_local, self.S * cap, fns.R)
         n_over = int(n_over.sum())
-        return recv, int(valid.sum()) - n_over, n_over, 0, left
+        n_sent = int(valid.sum()) - n_over
+        with comm.stage(COUNT_EXCHANGE, records=n_sent):
+            recv = all_to_all(buckets, fill)[0].view(self.n_local, self.S * cap, fns.R)
+        return recv, n_sent, n_over, 0, left
 
     def _exchange(self, payload, target, valid, cap: int, fns: RecordFns):
         """One routed exchange and receive; pushes the received runs and
@@ -398,7 +415,9 @@ class ShardedCounter:
         most `rows` (default: the run's own rows; a supermer receive passes
         the reference's, which expands every received record)."""
         m_w, m_c, m_l4, m_r4, nm, s_w, s_e, ns = run
-        nm_max, ns_max = comm.all_max(int(nm.max()), int(ns.max()))
+        nm_loc, ns_loc = int(nm.max()), int(ns.max())
+        with comm.stage(COUNT_EXCHANGE):
+            nm_max, ns_max = comm.all_max(nm_loc, ns_loc)
         pm = min(C.pow2_rows(nm_max), rows or m_w.shape[1])
         ps = min(C.pow2_rows(ns_max), rows or s_w.shape[1])
         if pm > m_w.shape[1] or ps > s_w.shape[1]:
@@ -436,7 +455,10 @@ class ShardedCounter:
         ids in the stitch. Tables are the same either way, and the table's
         bound_rows keeps the reference's row count for the stitch's round
         bound."""
-        P = min(C.pow2_rows(comm.all_max(int(agg[4].max()))), agg[0].shape[1])
+        n_loc = int(agg[4].max())
+        with comm.stage(COUNT_EXCHANGE):
+            n_max = comm.all_max(n_loc)
+        P = min(C.pow2_rows(n_max), agg[0].shape[1])
         return tuple(x[:, :P].contiguous() for x in agg[:4]) + (agg[4],)
 
     def _merge_ctg(self, a, b):
@@ -540,7 +562,8 @@ def sharded_lookup(table: ShardedTable, query_words, query_valid, cap: int | Non
     every rank until every query is answered (the reference's aggregating
     stores never drop either)."""
     S = table.S
-    Q = comm.all_max(query_words.shape[1])
+    with comm.stage(TRAVERSE_EXCHANGE):
+        Q = comm.all_max(query_words.shape[1])
     max_cap = S * Q  # every query routed to one shard
     cap = cap or max(64, 2 * Q // max(S, 1) + 64)
     while True:
@@ -564,9 +587,13 @@ def _sharded_lookup_once(table: ShardedTable, query_words, query_valid, cap: int
                         dim=2)
     buckets, n_over, _left, fill = _bucketize(payload, target, query_valid, S, cap)
     del payload, target
-    if comm.all_sum(int(n_over.sum())):
+    n_over = int(n_over.sum())
+    with comm.stage(TRAVERSE_EXCHANGE):
+        overflow = comm.all_sum(n_over)
+    if overflow:
         return None
-    rq, fill = all_to_all(buckets, fill)
+    with comm.stage(TRAVERSE_EXCHANGE):
+        rq, fill = all_to_all(buckets, fill)
     rq = rq.view(D, S * cap, W + 2)
     del buckets
     back = []
@@ -582,7 +609,9 @@ def _sharded_lookup_once(table: ShardedTable, query_words, query_valid, cap: int
         ans = torch.where(r_valid, ans, 0).to(torch.int32)
         back.append(torch.stack([ans, idx, r_qid, r_valid.to(torch.int32)], dim=-1))
     # slot (s, c) of each destination returns to source shard s
-    ret = all_to_all(torch.stack(back).view(D, S, cap, 4), fill)[0].view(D, S * cap, 4)
+    back = torch.stack(back).view(D, S, cap, 4)
+    with comm.stage(TRAVERSE_EXCHANGE):
+        ret = all_to_all(back, fill)[0].view(D, S * cap, 4)
     del back, rq
     dest = torch.where(ret[..., 3] > 0, ret[..., 2].long(), Q)
     at_query = lambda v: torch.zeros((D, Q + 1), dtype=torch.int32, device=dev).scatter_(  # noqa: E731

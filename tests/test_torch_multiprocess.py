@@ -147,6 +147,154 @@ def test_cli_two_processes_equal_one(tmp_path, rng):
         "merge_reads", "contigging k=21", "contigging k=33"]
 
 
+def _cli_group(args, out_dir, n: int, env: dict):
+    """n CLI processes joined by the rendezvous variables, writing one
+    output directory; returns their outputs."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        args + ["-o", str(out_dir)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT,
+        env=dict(env, MHM2_TPU_NUM_PROCS=str(n), MHM2_TPU_PROC_ID=str(pid),
+                 MHM2_TPU_COORDINATOR=f"localhost:{port}")) for pid in range(n)]
+    outs = [p.communicate(timeout=150)[0].decode() for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return outs
+
+
+def test_cli_four_ranks_ingest_their_own_bytes(tmp_path, rng):
+    """Four CLI processes at --hosts 4 --shards 4 on k = 21 33: each rank
+    parses only its own byte range of the interleaved FASTQ, cut between
+    pairs (its `ingest.parse` bytes, from --profile's [trace] table in its
+    per-rank log), and the round and final FASTA files equal one process's
+    at the same layout."""
+    from mhm2_proxy_tpu_torch.parallel.multihost import interleaved_pair_range
+
+    genome = random_genome(rng, 3000)
+    ids, seqs, quals = simulate_reads(rng, genome, coverage=12.0, read_len=80, err_rate=0.002)
+    n = len(seqs) // 2 * 2
+    fastq = str(tmp_path / "reads.fastq")
+    write_fastq(fastq, ids[:n], seqs[:n], quals[:n])
+    args = [sys.executable, "-m", "mhm2_proxy_tpu_torch", "-r", fastq, "-k", "21", "33",
+            "--hosts", "4", "--shards", "4", "--device", "cpu", "--block-reads", "64"]
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    one = subprocess.Popen(args + ["-o", str(tmp_path / "one")], cwd=ROOT, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    _cli_group(args + ["--profile"], tmp_path / "four", 4, env)
+    out = one.communicate(timeout=150)[0].decode()
+    assert one.returncode == 0, out[-3000:]
+    for name in ("contigs-21.fasta", "contigs-33.fasta", "final_assembly.fasta"):
+        got = [open(tmp_path / d / name, "rb").read() for d in ("one", "four")]
+        assert got[0] == got[1] and got[0].count(b">") > 0, name
+    log = open(tmp_path / "four" / "mhm2_torch.log").read()
+    assert "process 0 of 4, backend gloo" in log
+    size = os.path.getsize(fastq)
+    parsed = []
+    for r in range(4):
+        body = (tmp_path / "four" / "per_rank" / "00000000" / f"{r:08d}" /
+                "mhm2_torch.log").read_text()
+        row = [line for line in body.splitlines() if "[trace] ingest.parse " in line][0]
+        parsed.append(int(row.split("bytes ")[1].split(",")[0]))
+        lo, hi = interleaved_pair_range(fastq, r, 4)
+        assert parsed[r] == (hi + 1 if r < 3 else size) - (lo + 1 if r else 0)
+        assert abs(parsed[r] - size / 4) < 0.05 * size
+    assert sum(parsed) == size
+
+
+def _cli_setup(tmp_path, rng, n_ranks: int, flags=()):
+    """A tiny community's interleaved FASTQ and the CLI's arguments at
+    --hosts n --shards 4 on k = 21 33; one process's run of them in
+    tmp_path/one, and the environment for a group."""
+    genome = random_genome(rng, 3000)
+    ids, seqs, quals = simulate_reads(rng, genome, coverage=12.0, read_len=80, err_rate=0.002)
+    n = len(seqs) // 2 * 2
+    fastq = str(tmp_path / "reads.fastq")
+    write_fastq(fastq, ids[:n], seqs[:n], quals[:n])
+    args = [sys.executable, "-m", "mhm2_proxy_tpu_torch", "-r", fastq, "-k", "21", "33",
+            "--hosts", str(n_ranks), "--shards", "4", "--device", "cpu",
+            "--block-reads", "64", *flags]
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    one = subprocess.run(args + ["-o", str(tmp_path / "one")], cwd=ROOT, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=150)
+    assert one.returncode == 0, one.stdout.decode()[-3000:]
+    return args, env
+
+
+def _fastq_records(fname):
+    """The (bases, qualities) of a FASTQ's records, sorted: a rank's read ids
+    start at rank x 2^44, so the names differ from one process's."""
+    from mhm2_proxy_tpu_torch.io.fastq import read_fastq
+
+    ids, seqs, quals = read_fastq(str(fname))
+    assert len(set(ids)) == len(ids)
+    return sorted(zip(seqs, quals))
+
+
+def test_cli_ranks_checkpoint_merged_and_restart(tmp_path, rng):
+    """Four ranks at --hosts 4 --shards 4 with --checkpoint-merged: the one
+    reads-merged.fastq.gz holds every rank's reads once, the records of one
+    process's checkpoint; a --restart of the four from it, with the rounds'
+    files removed, reloads it and writes one process's FASTA."""
+    args, env = _cli_setup(tmp_path, rng, 4, ["--checkpoint-merged"])
+    four = tmp_path / "four"
+    _cli_group(args, four, 4, env)
+    ckpt = "reads-merged.fastq.gz"
+    assert _fastq_records(four / ckpt) == _fastq_records(tmp_path / "one" / ckpt)
+    final = open(tmp_path / "one" / "final_assembly.fasta", "rb").read()
+    assert open(four / "final_assembly.fasta", "rb").read() == final
+    for f in four.glob("*.fasta"):
+        f.unlink()
+    _cli_group(args + ["--restart"], four, 4, env)
+    assert "[restart] reloaded merged reads checkpoint" in open(four / "mhm2_torch.log").read()
+    assert open(four / "final_assembly.fasta", "rb").read() == final
+
+
+def test_cli_ranks_post_asm_equal_one(tmp_path, rng):
+    """Two ranks at --hosts 2 --shards 4 with --post-asm-align and
+    --post-asm-abundance, each rank aligning its own reads: rank 0's SAM
+    holds one process's header and records (in rank order, not the
+    input's, and named by each rank's read ids), its depths file equals one
+    process's, and no part file is left."""
+    flags = ["--post-asm-align", "--post-asm-abundance"]
+    args, env = _cli_setup(tmp_path, rng, 2, flags)
+    _cli_group(args, tmp_path / "two", 2, env)
+    sam = [open(tmp_path / d / "final_assembly.sam").read().splitlines()
+           for d in ("one", "two")]
+    head = [[ln for ln in s if ln.startswith("@")] for s in sam]
+    body = [sorted(ln.split("\t", 1)[1] for ln in s if not ln.startswith("@")) for s in sam]
+    assert head[0] == head[1] and body[0] == body[1] and len(body[0]) > 100
+    depths = [open(tmp_path / d / "final_assembly_depths.tsv").read() for d in ("one", "two")]
+    assert depths[0] == depths[1]
+    assert not list((tmp_path / "two").glob("final_assembly.sam.*"))
+
+
+def test_interleaved_ranges_cut_between_pairs(tmp_path, rng):
+    """The ranks' byte ranges of an interleaved FASTQ partition it, and each
+    starts at a mate 1: the naive cut at size * r / n falls inside a pair
+    for some r here, and the cut moves to the next pair."""
+    from mhm2_proxy_tpu_torch.io.stream import FastqStream
+    from mhm2_proxy_tpu_torch.parallel.multihost import interleaved_pair_range
+
+    genome = random_genome(rng, 2000)
+    ids, seqs, quals = simulate_reads(rng, genome, coverage=6.0, read_len=70, err_rate=0.0)
+    n = len(seqs) // 2 * 2
+    fastq = str(tmp_path / "reads.fastq")
+    write_fastq(fastq, ids[:n], seqs[:n], quals[:n])
+    for n_ranks in (2, 3, 4, 7):
+        names = []
+        for r in range(n_ranks):
+            br = interleaved_pair_range(fastq, r, n_ranks)
+            text = b"".join(FastqStream(fastq, 1 << 12, br).chunks())
+            heads = [ln for ln in text.split(b"\n")[0::4] if ln]
+            assert len(heads) % 2 == 0
+            assert all(h.endswith(b"/1") for h in heads[0::2])
+            assert all(a[:-2] == b[:-2] for a, b in zip(heads[0::2], heads[1::2]))
+            names += heads
+        assert names == [ln for ln in open(fastq, "rb").read().split(b"\n")[0::4] if ln]
+
+
 def test_rank_rows_split_and_refuse_uneven(monkeypatch):
     """A rank of a multi-process run takes its shards' equal slices of a
     block's rows, and a block whose rows do not divide over the shards is

@@ -310,3 +310,53 @@ def test_profile_logs_the_trace_table(fastq, tmp_path):
     prof = open(out / "profile" / "trace.json").read()
     assert all(f'"{n}"' in prof for n in ("round", "count.pack", "count.reads", "count.finalize",
                                            "traverse.edges", "traverse.contigs"))
+
+
+def test_exchange_spans_hold_every_byte_sent(fastq, tmp_path):
+    """Two ranks over gloo at --hosts 2 --shards 4 while a trace records:
+    every byte sent to the other rank is counted on a `count.exchange` or a
+    `traverse.exchange` span, so that their `sent_bytes` add up to the
+    transport's own count, and every collective sits on one of them; the
+    all-to-alls' `alltoall_bytes` are a part of each span's bytes."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    from tests.test_torch_multiprocess import free_port
+    from torch_common import traced_rank
+
+    argv = ["-r", fastq, "-k", "21", "33", "-o", str(tmp_path / "two"), "--device", "cpu",
+            "--block-reads", "64", "--hosts", "2", "--shards", "4"]
+    out = str(tmp_path / "rank")
+    mp.spawn(traced_rank, args=(2, free_port(), argv, out), nprocs=2, join=True)
+    for r in range(2):
+        got = json.load(open(f"{out}{r}.json"))
+        spans, transport = got["spans"], got["transport"]
+        cx, tx = spans["count.exchange"], spans["traverse.exchange"]
+        assert cx["sent_bytes"] > 0 and tx["sent_bytes"] > 0 and cx["records"] > 0
+        assert cx["sent_bytes"] + tx["sent_bytes"] == transport["bytes"]
+        assert 0 < cx["alltoall_bytes"] <= cx["sent_bytes"]
+        assert 0 < tx["alltoall_bytes"] <= tx["sent_bytes"]
+        elsewhere = {n: row["collectives"] for n, row in spans.items()
+                     if n not in ("count.exchange", "traverse.exchange") and row["collectives"]}
+        # outside the exchange: the [module] lines' min / avg / max and the
+        # read-id check, which send no bytes
+        assert set(elsewhere) == {"job", "ingest"}, elsewhere
+        assert cx["collectives"] + tx["collectives"] + sum(elsewhere.values()) \
+            == transport["calls"]
+
+
+@pytest.mark.parametrize("extra", [(), ("--hosts", "2", "--shards", "4")])
+def test_untraced_world_of_one_adds_no_sync(fastq, tmp_path, monkeypatch, extra):
+    """Without a recording, a world of one (the single-device path, and the
+    sharded one on one device) never synchronizes the device for the
+    exchange's spans, which it opens all the same."""
+    cuda = FakeCuda(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    _run(fastq, tmp_path / "off", *extra)
+    assert cuda.syncs == 0 and cuda.modes == []
+    with trace.recording(syncs=False) as rec:
+        _run(fastq, tmp_path / "on", *extra)
+    assert cuda.syncs == 0
+    names = {s.name for s in rec}
+    assert ("count.exchange" in names) == ("traverse.exchange" in names) == bool(extra)

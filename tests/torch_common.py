@@ -1,6 +1,8 @@
 """Shared pieces of the port's tests (imports torch and pytest, never jax, so
 the card-only tests and chip_smoke.py can use it too)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -102,4 +104,34 @@ def hierarchical_rank(rank, world, port, D, cap, k, inp, out):
     with open(f"{out}{rank}.json", "w") as f:
         json.dump(dict(contigs=contigs, stitch_rounds=stats["stitch_rounds"],
                        spill_rounds=counter.spill_rounds), f)
+    torch.distributed.destroy_process_group()
+
+
+def traced_rank(rank, world, port, argv, out):
+    """One CLI process of a `world`-rank run on the CPU over gloo, for
+    torch.multiprocessing.spawn: run_pipeline on argv while a trace records;
+    the `sent_bytes` and `collectives` summed by span name, and the
+    transport's own counts, go to out + rank (JSON)."""
+    import json
+
+    from mhm2_proxy_tpu_torch.main import run_pipeline
+    from mhm2_proxy_tpu_torch.options import parse_args
+    from mhm2_proxy_tpu_torch.parallel import comm
+    from mhm2_proxy_tpu_torch.parallel.multihost import init_multihost
+    from mhm2_proxy_tpu_torch.utils import trace
+
+    torch.set_num_threads(1)
+    os.environ.update(MHM2_TPU_PROC_ID=str(rank), MHM2_TPU_NUM_PROCS=str(world))
+    init_multihost(f"localhost:{port}", world, rank, device="cpu")
+    comm.reset_transport()
+    with trace.recording(syncs=False) as spans:
+        run_pipeline(parse_args(argv))
+    rows = {}
+    for s in spans:
+        row = rows.setdefault(s.name, {"calls": 0})
+        row["calls"] += 1
+        for c in ("sent_bytes", "alltoall_bytes", "collectives", "records"):
+            row[c] = row.get(c, 0) + s.counters.get(c, 0)
+    with open(f"{out}{rank}.json", "w") as f:
+        json.dump(dict(spans=rows, transport=dict(comm.TRANSPORT)), f)
     torch.distributed.destroy_process_group()
