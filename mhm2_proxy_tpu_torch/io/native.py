@@ -1,22 +1,38 @@
-"""ctypes bindings for the native FASTQ layer (native/fastq_native.cpp).
+"""ctypes bindings for the host's native code: the pair merge and the
+stitcher of the shared library (native/, built on demand with make), and
+the port's own one-pass FASTQ parser (csrc/fastq_into.cpp).
 
-Builds on demand with make; falls back to the pure-Python reader when the
-toolchain or .so is unavailable (the reference's CPU/GPU-style backend seam
-applied to ingest).
+The parser is built by the C++ compiler into
+`mhm2_proxy_tpu_torch/_build/<hash>/libmhm2_fastq.so`, keyed by a hash of
+its source and flags, at its first use in a process; the library is linked
+under a temporary name and renamed into place, so a process never loads a
+half-written one. Without a compiler the ingest falls back to the
+pure-Python reader (the reference's CPU/GPU-style backend seam applied to
+ingest).
+
+    c++ -O3 -march=native -fPIC -std=c++17 -Wall -shared \
+        -o libmhm2_fastq.so csrc/fastq_into.cpp
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libmhm2_native.so"))
+_PKG = Path(__file__).resolve().parent.parent
+_PARSE_SRC = _PKG / "csrc" / "fastq_into.cpp"
+_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 
 _lib = None
+_parse_lib = None  # the parser's library; False once it could not be built or loaded
 
 
 def _load():
@@ -35,20 +51,6 @@ def _load():
         lib = ctypes.CDLL(_SO_PATH)
     except OSError:
         return None
-    lib.fastq_resync.restype = ctypes.c_int64
-    lib.fastq_resync.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64]
-    lib.fastq_parse_block.restype = ctypes.c_int64
-    lib.fastq_parse_block.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_int64),
-    ]
-    lib.fastq_scan.restype = ctypes.c_int64
-    lib.fastq_scan.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64),
-    ]
     try:
         lib.mhm2_merge_pairs.restype = ctypes.c_int64
         lib.mhm2_merge_pairs.argtypes = [
@@ -106,8 +108,74 @@ def get_stitch_walk():
     return walk
 
 
-def native_available() -> bool:
-    return _load() is not None
+def _build_parse():
+    """Build (if its hash is new) and load the parser's library, or None."""
+    h = hashlib.sha256(" ".join(_CXXFLAGS).encode() + _PARSE_SRC.read_bytes()).hexdigest()[:16]
+    so = _PKG / "_build" / h / "libmhm2_fastq.so"
+    if not so.exists():
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            return None
+        tmp = so.with_name(f"libmhm2_fastq.{os.getpid()}.tmp.so")
+        try:
+            so.parent.mkdir(parents=True, exist_ok=True)
+            subprocess.run([cxx, *_CXXFLAGS, "-o", str(tmp), str(_PARSE_SRC)],
+                           check=True, capture_output=True)
+            os.replace(tmp, so)
+        except (OSError, subprocess.SubprocessError):
+            tmp.unlink(missing_ok=True)
+            return None
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError:
+        return None
+    lib.fastq_parse_into.restype = ctypes.c_int64
+    lib.fastq_parse_into.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    return lib
+
+
+def parse_into_available() -> bool:
+    global _parse_lib
+    if _parse_lib is None:
+        _parse_lib = _build_parse() or False
+    return _parse_lib is not False
+
+
+def parse_into(buf: np.ndarray, offset: int, final: bool, row0: int, codes, quals, lens,
+               qual_pad: int = 33, hdrs=None, hdr_lens=None):
+    """Parse the records of buf[offset:] (u8) straight into rows row0.. of a
+    block (csrc/fastq_into.cpp::fastq_parse_into): codes / quals (B, L) u8,
+    lens (B,) i32, and with hdrs the header lines into hdrs (B, W) u8 and
+    hdr_lens (B,) i32. `final` marks the file's last bytes, whose last line
+    may lack its newline.
+
+    Returns (records written, the offset after them, the longest read
+    written, the read length and the header length of a record too long
+    for the block's widths, 0 where none).
+    """
+    B, L = codes.shape
+    u8 = (buf, codes, quals) + (() if hdrs is None else (hdrs,))
+    i32 = (lens,) + (() if hdrs is None else (hdr_lens,))
+    if not (all(a.flags.c_contiguous for a in u8 + i32) and all(a.dtype == np.uint8 for a in u8)
+            and all(a.dtype == np.int32 and a.shape == (B,) for a in i32)
+            and quals.shape == (B, L) and (hdrs is None or hdrs.shape[0] == B)
+            and 0 <= row0 <= B and 0 <= offset <= buf.size):
+        raise ValueError("parse_into: a block array of another type, shape or layout")
+    if not parse_into_available():
+        raise RuntimeError("parse_into: the parser's library could not be built")
+    out = np.zeros(4, np.int64)
+    p = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+    got = _parse_lib.fastq_parse_into(
+        p(buf), buf.size, offset, int(final), row0, B, L, qual_pad,
+        p(codes), p(quals), p(lens),
+        0 if hdrs is None else hdrs.shape[1], p(hdrs), p(hdr_lens), p(out),
+    )
+    return int(got), int(out[0]), int(out[1]), int(out[2]), int(out[3])
 
 
 def merge_available() -> bool:
@@ -151,39 +219,3 @@ def merge_pairs(codes1, quals1, len1, codes2, quals2, len2, qual_offset=33,
         m_len=m_len, overlap=overlap, quals1_z=q1z, quals2_z=q2z,
         n_ambiguous=int(n_ambig),
     )
-
-
-def resync(buf: bytes, start: int) -> int:
-    lib = _load()
-    return int(lib.fastq_resync(buf, len(buf), start))
-
-
-def scan(buf: bytes, offset: int = 0) -> tuple[int, int]:
-    """(record_count, max_seq_len) from offset."""
-    lib = _load()
-    ml = ctypes.c_int64(0)
-    cnt = lib.fastq_scan(buf, len(buf), offset, ctypes.byref(ml))
-    return int(cnt), int(ml.value)
-
-
-def parse_blocks(buf: bytes, block_reads: int, pad_len: int, qual_pad: int = 33,
-                 offset: int = 0):
-    """Yield (codes (B,L) u8, quals (B,L) u8, lens (B,) i32) blocks."""
-    lib = _load()
-    n = len(buf)
-    while offset < n:
-        codes = np.empty((block_reads, pad_len), np.uint8)
-        quals = np.empty((block_reads, pad_len), np.uint8)
-        lens = np.empty((block_reads,), np.int32)
-        nxt = ctypes.c_int64(0)
-        got = lib.fastq_parse_block(
-            buf, n, offset, block_reads, pad_len, qual_pad,
-            codes.ctypes.data_as(ctypes.c_void_p),
-            quals.ctypes.data_as(ctypes.c_void_p),
-            lens.ctypes.data_as(ctypes.c_void_p),
-            ctypes.byref(nxt),
-        )
-        if got == 0:
-            break
-        yield codes, quals, lens, int(got)
-        offset = int(nxt.value)

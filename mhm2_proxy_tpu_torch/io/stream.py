@@ -3,10 +3,13 @@
 The reference never slurps inputs: each rank streams its byte range with
 fadvise hints (src/fastq.cpp:457-475) so terabase inputs ingest in constant
 memory. This module replaces the round-1 whole-file read with a chunked
-stream: raw or gzip files are read in `chunk_bytes` pieces, cut at record
-boundaries, parsed (native C++ parser when available), and re-batched into
-uniform `block_reads`-row blocks. Peak buffering is ~2 chunks + 1 block
-regardless of file size.
+stream: raw or gzip files are read in `chunk_bytes` pieces into one buffer,
+the port's one-pass native parser (csrc/fastq_into.cpp) writes the
+buffer's complete records straight into the uniform `block_reads`-row
+block being filled, and the rest of the buffer is carried ahead of the
+next read. Without the native parser, each buffer is cut at its last
+record, parsed in Python and re-batched. Peak buffering is ~2 chunks + 1
+block regardless of file size.
 
 Byte ranges (multi-host ingest, fastq.cpp:399-455) are supported for raw
 files: the stream resyncs its start to the next record boundary and owns
@@ -16,10 +19,12 @@ last record), so ranges partition the file exactly.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 
 import numpy as np
 
+from ..utils import trace
 from .fastq import _resync_offset, headers_from_chunk, normalize_fq_name, parse_fastq_bytes
 
 
@@ -37,7 +42,7 @@ def _last_record_end(buf: bytes) -> int:
 
 
 class FastqStream:
-    """Chunked record-complete byte stream over a FASTQ file (or byte range)."""
+    """Chunked record-aligned reads of a FASTQ file (or byte range)."""
 
     def __init__(self, fname: str, chunk_bytes: int = 8 << 20,
                  byte_range: tuple[int, int] | None = None):
@@ -55,6 +60,30 @@ class FastqStream:
         return _resync_offset(b"x" + buf, pos + 1) - 1
 
     def chunks(self):
+        """The file's records (or the range's) as bytes, in record-complete
+        chunks of about chunk_bytes."""
+        with contextlib.closing(self.buffers()) as bufs:
+            buf, final = next(bufs)
+            while True:
+                c = buf.size if final else _last_record_end(buf)
+                if c:
+                    yield buf[:c].tobytes()
+                if final:
+                    return
+                buf, final = bufs.send(c)
+
+    def buffers(self):
+        """A generator over the file's bytes (or the range's), read
+        chunk_bytes at a time into one reused buffer.
+
+        It yields (buf, final): buf, a u8 array over the bytes buffered so
+        far, starts at a record boundary and is valid until the next send.
+        Send back how many of its leading bytes were consumed (whole
+        records); the rest is carried ahead of the next read. The last
+        buffer (final true, possibly empty) holds every byte left and is
+        consumed whole. Inside a trace recording, the innermost span's
+        `bytes` counter takes the bytes consumed.
+        """
         gz = self.fname.endswith(".gz")
         f = gzip.open(self.fname, "rb") if gz else open(self.fname, "rb")
         try:
@@ -75,17 +104,26 @@ class FastqStream:
                     consumed += len(more)
                     start = self._resync_at(probe, 0)
                 tail = probe[start:] if start < len(probe) else b""
+            # arr[:held] is the carried tail; each read lands right after it
+            held = len(tail)
+            arr = np.empty(held + self.chunk_bytes, np.uint8)
+            arr[:held] = np.frombuffer(tail, np.uint8)
             while True:
-                buf_start = consumed - len(tail)  # file offset of tail/buf[0]
-                data = f.read(self.chunk_bytes)
-                eof = not data
-                buf = tail + data
-                consumed += len(data)
-                self.max_buffered = max(self.max_buffered, len(buf))
+                buf_start = consumed - held  # file offset of arr[0]
+                if arr.size < held + self.chunk_bytes:
+                    grown = np.empty(held + self.chunk_bytes, np.uint8)
+                    grown[:held] = arr[:held]
+                    arr = grown
+                got = f.readinto(memoryview(arr)[held : held + self.chunk_bytes])
+                eof = not got
+                n = held + got
+                consumed += got
+                self.max_buffered = max(self.max_buffered, n)
                 if hi is not None and consumed >= hi:
                     # own every record STARTING before hi: cut at the first
                     # boundary at/after hi, extending the buffer if the
                     # boundary (or the final record) runs past it
+                    buf = arr[:n].tobytes()
                     keep = hi - buf_start
                     while True:
                         b = self._resync_at(buf, max(keep, 0))
@@ -96,15 +134,17 @@ class FastqStream:
                         buf += data
                         consumed += len(data)
                         self.max_buffered = max(self.max_buffered, len(buf))
-                    if b > 0:
-                        yield buf[:b]
+                    trace.count("bytes", b)
+                    yield np.frombuffer(buf, np.uint8)[:b], True
                     return
-                cut = len(buf) if eof else _last_record_end(buf)
-                if cut:
-                    yield buf[:cut]
                 if eof:
+                    trace.count("bytes", n)
+                    yield arr[:n], True
                     return
-                tail = buf[cut:]
+                c = yield arr[:n], False
+                trace.count("bytes", c)
+                held = n - c
+                arr[:held] = arr[c:n]
         finally:
             f.close()
 
@@ -164,6 +204,8 @@ class _Rebatcher:
                 )
         self.groups = rest
         self.rows -= n
+        trace.count("out_bytes", out_c.nbytes + out_q.nbytes + out_l.nbytes
+                    + (out_h.nbytes + out_hl.nbytes if self.with_ids else 0))
         if self.with_ids:
             return out_c, out_q, out_l, n, (out_h, out_hl)
         return out_c, out_q, out_l, n
@@ -177,48 +219,138 @@ class _Rebatcher:
             yield self._emit(self.rows)
 
 
+class _Block:
+    """A (block_reads, L) block being filled by the native one-pass parser.
+
+    The parser writes each row a record reaches once, whole; only the rows
+    no record reaches (the last block's) are padded apart. L starts at the
+    quantum-rounded longest read of the block before and widens when a
+    longer read arrives; the header matrix is as wide as the longest header
+    so far (the pair check's work grows with its width).
+    """
+
+    def __init__(self, block_reads: int, pad_quantum: int, qual_offset: int, with_ids: bool,
+                 width: int, hdr_width: int):
+        B = self.B = block_reads
+        self.q = pad_quantum
+        self.qoff = qual_offset
+        self.with_ids = with_ids
+        self.codes = np.empty((B, width), np.uint8)
+        self.quals = np.empty((B, width), np.uint8)
+        self.lens = np.empty((B,), np.int32)
+        self.hdrs = np.empty((B, hdr_width), np.uint8) if with_ids else None
+        self.hdr_lens = np.empty((B,), np.int32) if with_ids else None
+        self.row = 0
+        self.longest = 0
+
+    def after(self) -> _Block:
+        """The next block, as wide as this one's longest read and header."""
+        return _Block(self.B, self.q, self.qoff, self.with_ids, _round(self.longest, self.q),
+                      self.hdrs.shape[1] if self.with_ids else 0)
+
+    def widen(self, read_len: int, hdr_len: int):
+        """Copy the filled rows into wider arrays, padding their new columns."""
+        r = self.row
+        if read_len:
+            L = _round(read_len, self.q)
+            for name, pad in (("codes", 4), ("quals", self.qoff)):
+                old = getattr(self, name)
+                new = np.empty((self.B, L), np.uint8)
+                new[:r, : old.shape[1]] = old[:r]
+                new[:r, old.shape[1] :] = pad
+                setattr(self, name, new)
+            trace.count("out_bytes", 2 * r * L)
+        if hdr_len:
+            old = self.hdrs
+            self.hdrs = np.empty((self.B, hdr_len), np.uint8)
+            self.hdrs[:r, : old.shape[1]] = old[:r]
+            self.hdrs[:r, old.shape[1] :] = 0
+            trace.count("out_bytes", r * hdr_len)
+
+    def finish(self) -> tuple:
+        """The block as stream_fastq_blocks yields it, its unreached rows padded."""
+        n = self.row
+        if n < self.B:
+            self.codes[n:] = 4
+            self.quals[n:] = self.qoff
+            self.lens[n:] = 0
+            if self.with_ids:
+                self.hdrs[n:] = 0
+                self.hdr_lens[n:] = 0
+        blk = (self.codes, self.quals, self.lens, n)
+        ids = (self.hdrs, self.hdr_lens) if self.with_ids else ()
+        trace.count("out_bytes", sum(a.nbytes for a in blk[:3] + ids))
+        return blk + (ids,) if ids else blk
+
+
+def _round(n: int, q: int) -> int:
+    return max((n + q - 1) // q * q, q)
+
+
 def stream_fastq_blocks(fname: str, block_reads: int, pad_quantum: int = 32,
                         qual_offset: int = 33, chunk_bytes: int = 8 << 20,
                         byte_range: tuple[int, int] | None = None,
-                        stream: FastqStream | None = None,
                         with_ids: bool = False):
     """Yield (codes (B,L) u8, quals (B,L) u8, lens (B,) i32, n) blocks.
 
     Exactly `block_reads` rows per block (last block partial, n < B), with
     bounded memory: ~2 chunks + 1 block live at any time. Drop-in equivalent
-    of the round-1 whole-buffer parse (identical blocks modulo padding width).
+    of the round-1 whole-buffer parse (identical blocks modulo padding width:
+    L is a multiple of pad_quantum at least the block's longest read).
 
     with_ids appends a (header_matrix (B,W) u8, header_lens (B,) i32)
     sideband per block (headers_from_chunk format) for pair-name validation;
     extraction is vectorized so the hot path stays loop-free.
+
+    The native parser writes each buffer's records straight into the block
+    being filled (_Block); without it, each chunk is parsed in Python and
+    re-batched. Inside a trace recording, the innermost span counts the
+    FASTQ `bytes` read and the `out_bytes` of block arrays written.
     """
     from . import native
 
-    st = stream or FastqStream(fname, chunk_bytes, byte_range)
-    rb = _Rebatcher(block_reads, pad_quantum, qual_offset, with_ids=with_ids)
-    use_native = native.native_available()
-    for chunk in st.chunks():
-        hdrs = headers_from_chunk(chunk) if with_ids else None
-        hpos = 0
-        if use_native:
-            cnt, maxlen = native.scan(chunk)
-            if cnt == 0:
-                continue
-            L = max((maxlen + pad_quantum - 1) // pad_quantum * pad_quantum, pad_quantum)
-            for c, q, l, n in native.parse_blocks(chunk, block_reads, L, qual_pad=qual_offset):
-                h = None
-                if with_ids:
-                    h = (hdrs[0][hpos : hpos + n], hdrs[1][hpos : hpos + n])
-                    hpos += n
-                rb.add(c[:n], q[:n], l[:n], h)
-        else:
-            ids, seqs, quals = parse_fastq_bytes(chunk)
-            if not seqs:
-                continue
-            from ..models.assembler import _lists_to_block
+    st = FastqStream(fname, chunk_bytes, byte_range)
+    if not native.parse_into_available():
+        yield from _python_blocks(st, block_reads, pad_quantum, qual_offset, with_ids)
+        return
+    blk = _Block(block_reads, pad_quantum, qual_offset, with_ids, pad_quantum, 1)
+    with contextlib.closing(st.buffers()) as bufs:
+        buf, final = next(bufs)
+        while True:
+            off = 0
+            while True:
+                got, off, longest, read_len, hdr_len = native.parse_into(
+                    buf, off, final, blk.row, blk.codes, blk.quals, blk.lens, qual_offset,
+                    blk.hdrs, blk.hdr_lens,
+                )
+                blk.row += got
+                blk.longest = max(blk.longest, longest)
+                if blk.row == block_reads:
+                    yield blk.finish()
+                    blk = blk.after()
+                elif read_len or hdr_len:
+                    blk.widen(read_len, hdr_len)
+                else:
+                    break
+            if final:
+                break
+            buf, final = bufs.send(off)
+    if blk.row:
+        yield blk.finish()
 
-            c, q, l = _lists_to_block(seqs, quals, pad_quantum, qual_offset)
-            rb.add(c, q, l, hdrs)
+
+def _python_blocks(st: FastqStream, block_reads: int, pad_quantum: int, qual_offset: int,
+                   with_ids: bool):
+    """stream_fastq_blocks without the native parser."""
+    from ..models.assembler import _lists_to_block
+
+    rb = _Rebatcher(block_reads, pad_quantum, qual_offset, with_ids=with_ids)
+    for chunk in st.chunks():
+        ids, seqs, quals = parse_fastq_bytes(chunk)
+        if not seqs:
+            continue
+        c, q, l = _lists_to_block(seqs, quals, pad_quantum, qual_offset)
+        rb.add(c, q, l, headers_from_chunk(chunk) if with_ids else None)
         yield from rb.full_blocks()
     yield from rb.flush()
 

@@ -34,7 +34,7 @@ from ..io.fastq import split_paired_fname
 from ..io.fasta import write_fasta
 from ..io.merge import merge_reads_arrays
 from ..io.reads import PackedReads
-from ..io.stream import FastqStream, stream_fastq_blocks
+from ..io.stream import stream_fastq_blocks
 from ..kcount import KmerCountStore
 from ..kcount.kmer_store import render_kmer_dump
 from ..dbjg import traverse_debruijn_graph, traverse_debruijn_graph_sharded
@@ -619,23 +619,13 @@ def assemble(reads_fnames: list[str], config: AssemblerConfig | None = None):
     return asm
 
 
-class _CountedStream(FastqStream):
-    """A FASTQ stream that counts the bytes of each chunk it reads."""
-
-    def chunks(self):
-        for chunk in super().chunks():
-            trace.count("bytes", len(chunk))
-            yield chunk
-
-
 def _parsed_blocks(fname: str, block_reads: int, byte_range, with_ids: bool, kw: dict):
     """stream_fastq_blocks of one file, the reading and parsing of each
     block (the consumer's next()) in an `ingest.parse` span that counts
     the FASTQ bytes read and the block's reads."""
 
     def counted():
-        stream = _CountedStream(fname, kw["chunk_bytes"], byte_range)
-        for blk in stream_fastq_blocks(fname, block_reads, byte_range=byte_range, stream=stream,
+        for blk in stream_fastq_blocks(fname, block_reads, byte_range=byte_range,
                                        with_ids=with_ids, **kw):
             trace.count("reads", int(blk[3]))
             yield blk

@@ -8,6 +8,7 @@ tests/test_multiprocess.py's two tests), at tolerance 0 for sequences and
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -195,7 +196,7 @@ def test_cli_four_ranks_ingest_their_own_bytes(tmp_path, rng):
         body = (tmp_path / "four" / "per_rank" / "00000000" / f"{r:08d}" /
                 "mhm2_torch.log").read_text()
         row = [line for line in body.splitlines() if "[trace] ingest.parse " in line][0]
-        parsed.append(int(row.split("bytes ")[1].split(",")[0]))
+        parsed.append(int(re.search(r"(?<!\w)bytes (\d+)", row).group(1)))
         lo, hi = interleaved_pair_range(fastq, r, 4)
         assert parsed[r] == (hi + 1 if r < 3 else size) - (lo + 1 if r else 0)
         assert abs(parsed[r] - size / 4) < 0.05 * size
