@@ -10,7 +10,7 @@
                                                    # compact), ssw and minimizer rows
     python3 chip_smoke.py --only sharded [DIR]     # phase 8 alone, the minimizer metered
     python3 chip_smoke.py --only hosts [DIR]       # phase 9 alone, the supermer stage metered
-    python3 chip_smoke.py --only multiproc [DIR]   # phase 10 alone (processes, one card)
+    python3 chip_smoke.py --only multiproc [DIR]   # phase 10 alone (CLI ranks, one card)
     python3 chip_smoke.py --only lookup [DIR]      # phase 2's lookup rows
     python3 chip_smoke.py --only merge [DIR]       # phase 5m alone (the pair merge)
 
@@ -135,20 +135,16 @@ Phases (any failure raises, and the script exits non-zero):
      the sharded path's five launch counts > 0; each k = 21 shard table
      equals phase 8's shard for shard; final_assembly.fasta is
      byte-identical to phase 8's; >= 95% exact-substring bases;
- 10. processes over torch.distributed on the one card (parallel/worker.py,
-     k = 21): the CI sample as 'f1:f2' through two processes of 2 shards
-     each (gloo) equals the CLI's single-process --hosts 2 --shards 4; the
-     full community through two processes of 2 shards each (gloo, the
-     worker's single-file ingest) against a single-process control of the
-     same ingest through HierarchicalCounter(21, (2, 2)): each rank's shard
-     tables' live rows equal the control's shards, both ranks' contigs and
-     the shared final_assembly.fasta equal the control's, per-rank logs;
-     each rank's counting and traversal walls, the bytes and seconds of its
-     cross-rank transport and its peak device memory; then one process of
-     4 shards over NCCL on the same reads equals the control.
+ 10. CLI ranks over torch.distributed on the one card (main.main joined by
+     MHM2_TPU_NUM_PROCS / MHM2_TPU_PROC_ID / MHM2_TPU_COORDINATOR), the
+     community at k = 21 with --hosts 2 --shards 4: two ranks that share
+     the card (gloo), then one rank (NCCL), each against the single-process
+     CLI at the same layout: final_assembly.fasta and contigs-21.fasta
+     byte for byte, the backend in the log; each gloo rank's per-rank log
+     and its sharded-path launch counts > 0.
 Prints the kernels' JSON summary (launch counts of phase 5, ssw's of phase
 7, minimizer's of phase 8, hosts_launches: phase 9's, multiproc_launches:
-phase 10's two community ranks' together; ladder_ms: phase 5's
+phase 10's two gloo ranks' together; ladder_ms: phase 5's
 device ms, minimizer's of phase 8, metered the same way), then the card
 line, then as the last line
 {"ok": true, "device": {...}}. Without CUDA it exits 2, and without the
@@ -1925,7 +1921,7 @@ def phase_stitch(table, k: int = 21, min_states: int = 3):
     succ, base, cnt = succ.cpu().numpy().astype(np.int64), base.cpu().numpy(), cnt.cpu().numpy()
     fetch_s = time.perf_counter() - t0
     walk = get_stitch_walk()
-    check(walk is not None, "the native stitch walker (native/libmhm2_native.so) did not load")
+    check(walk is not None, "the native stitch walker (io/native.py's host library) did not load")
     S = succ.size
     buf = np.empty(S + (k - 1) * (S + 1), np.uint8)
     starts, nst, dep = (np.empty(S + 1, np.int64) for _ in range(3))
@@ -2225,12 +2221,16 @@ def phase_hosts_arctic(work, fq, gens, sharded=None):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: processes over torch.distributed
+# phase 10: CLI ranks over torch.distributed
 # ---------------------------------------------------------------------------
 
-# reads in a process's block: the CLI's CUDA block (a single-process
-# control takes two of them at once)
-WORKER_BLOCK_READS = 131072
+# one CLI rank (main.main, which the rendezvous variables join to its group)
+# that then writes its kernels' launch counts to the file of its first argument
+RANK = ("import json, sys\n"
+        "from mhm2_proxy_tpu_torch.main import main\n"
+        "from mhm2_proxy_tpu_torch.ops import kernels\n"
+        "main(sys.argv[2:])\n"
+        "json.dump(kernels.launches(), open(sys.argv[1], 'w'))\n")
 
 
 def free_port() -> int:
@@ -2243,34 +2243,31 @@ def free_port() -> int:
     return port
 
 
-def run_workers(fastq, out_dir, n, local_shards, block_reads, timeout=900):
-    """n processes of `python -m mhm2_proxy_tpu_torch.parallel.worker` on
-    the card (they share it), each one's output in out_dir/worker-<pid>.out;
-    fails unless every one exits 0, and kills the rest as soon as one fails.
-    Returns (wall, each rank's worker-<pid>.json, each rank's contigs)."""
+def run_ranks(argv, out_dir, n, timeout=900):
+    """n CLI ranks on the card (they share it), joined by MHM2_TPU_NUM_PROCS /
+    MHM2_TPU_PROC_ID / MHM2_TPU_COORDINATOR, on argv + `-o out_dir`; each
+    one's output in out_dir.<pid>.out. Fails unless every one exits 0, and
+    kills the rest as soon as one fails. Returns (wall, each rank's launch
+    counts)."""
     import mhm2_proxy_tpu_torch
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(mhm2_proxy_tpu_torch.__file__)))
     shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
     port = free_port()
-    env = dict(os.environ, PYTHONPATH=pkg_root)
     t0 = time.perf_counter()
     procs = []
     try:
         for pid in range(n):
-            out = open(os.path.join(out_dir, f"worker-{pid}.out"), "w")
+            out = open(f"{out_dir}.{pid}.out", "w")
+            env = dict(os.environ, PYTHONPATH=pkg_root, MHM2_TPU_NUM_PROCS=str(n),
+                       MHM2_TPU_PROC_ID=str(pid), MHM2_TPU_COORDINATOR=f"localhost:{port}")
             procs.append((subprocess.Popen(
-                [sys.executable, "-m", "mhm2_proxy_tpu_torch.parallel.worker", str(pid), str(n),
-                 str(port), fastq, out_dir, "--device", "cuda", "--local-shards",
-                 str(local_shards), "--block-reads", str(block_reads), "--bucket-cap", "0"],
-                # every rank on this host: they share its one card
-                env=dict(env, MHM2_TPU_LOCAL_RANK=str(pid), MHM2_TPU_LOCAL_PROCS=str(n)),
-                cwd=pkg_root, stdout=out, stderr=subprocess.STDOUT), out))
+                [sys.executable, "-c", RANK, f"{out_dir}.{pid}.json", *argv, "-o", out_dir],
+                env=env, cwd=pkg_root, stdout=out, stderr=subprocess.STDOUT), out))
         while any(p.poll() is None for p, _ in procs):
             failed = any(p.poll() not in (None, 0) for p, _ in procs)
             check(not failed and time.perf_counter() - t0 < timeout,
-                  f"a worker of {n} failed or the run passed {timeout} s")
+                  f"a rank of {n} failed or the run passed {timeout} s")
             time.sleep(0.5)
     finally:
         for p, f in procs:
@@ -2280,126 +2277,46 @@ def run_workers(fastq, out_dir, n, local_shards, block_reads, timeout=900):
             f.close()
             if p.returncode:
                 log(open(f.name).read()[-4000:])
-    wall = time.perf_counter() - t0
     check(all(p.returncode == 0 for p, _ in procs),
-          f"workers exited {[p.returncode for p, _ in procs]}")
-    reports = [json.load(open(os.path.join(out_dir, f"worker-{pid}.json"))) for pid in range(n)]
-    lists = [json.load(open(os.path.join(out_dir, f"contigs-{pid}.json"))) for pid in range(n)]
-    return wall, reports, lists
-
-
-def log_ranks(tag, wall, reports):
-    for r in reports:
-        ct, tt = r["count_transport"], r["transport"]
-        log(f"[{tag}] rank {r['pid']}/{r['n_procs']} on {r['device']}: {r['reads']} reads, "
-            f"counting {r['count_s']:.2f} s, traversal {r['traverse_s']:.2f} s; cross-rank "
-            f"transport: counting {ct['bytes']} bytes in {ct['seconds']:.3f} s ({ct['calls']} "
-            f"collectives), traversal {tt['bytes']} bytes in {tt['seconds']:.3f} s "
-            f"({tt['calls']} collectives); peak device memory {r['peak_bytes'] / 1e9:.2f} GB; "
-            f"table rows a shard {r['rows']}, shards {[(n, d[:16]) for n, d in r['shards']]}; "
-            f"exchange {r['exchange']}; stitch rounds {r['stitch_rounds']}; {r['contigs']} "
-            f"contigs; launches {r['launches']}")
-    log(f"[{tag}] {len(reports)} process(es): wall {wall:.2f} s (process start and the "
-        "kernels' load included)")
-
-
-def split_pairs(fq, d):
-    """An interleaved FASTQ as its two mate files: 'f1:f2'."""
-    from mhm2_proxy_tpu_torch.io.fastq import FastqReader, write_fastq
-
-    r = FastqReader(fq)
-    f1, f2 = os.path.join(d, "mates_1.fastq"), os.path.join(d, "mates_2.fastq")
-    for f, sl in ((f1, slice(0, None, 2)), (f2, slice(1, None, 2))):
-        write_fastq(f, r.ids[sl], r.seqs[sl], r.quals[sl])
-    return f"{f1}:{f2}"
+          f"ranks exited {[p.returncode for p, _ in procs]}")
+    return time.perf_counter() - t0, [json.load(open(f"{out_dir}.{pid}.json"))
+                                      for pid in range(n)]
 
 
 def phase_multiproc(work, fq):
-    """Phase 10: processes over torch.distributed on the one card. The CI
-    sample as 'f1:f2' through two worker processes of 2 shards each (gloo)
-    against the CLI's single-process --hosts 2 --shards 4 at k = 21 (its
-    FASTA at --min-ctg-print-len 0 holds every contig); then the full
-    community (fq, the interleaved file: the worker's single-file ingest,
-    unpaired reads) through two processes of 2 shards each against a
-    single-process control of the same ingest, whole, through
-    HierarchicalCounter(21, (2, 2)) and the sharded traversal: each rank's
-    shard tables' live rows, both ranks' contigs and the shared FASTA; then
-    one process of 4 shards over NCCL on the control's reads. Returns the
-    kernels' launches summed over the two community ranks."""
-    import torch
-
-    from mhm2_proxy_tpu_torch.dbjg import traverse_debruijn_graph_sharded
-    from mhm2_proxy_tpu_torch.io.fasta import read_fasta
-    from mhm2_proxy_tpu_torch.parallel import HierarchicalCounter
-    from mhm2_proxy_tpu_torch.parallel.worker import count_reads, fasta_records, shard_digests
-
-    def same_fasta(out_dir, contigs):
-        return open(os.path.join(out_dir, "final_assembly.fasta"), "rb").read() == \
-            fasta_records(contigs)
-
-    # the CI sample, 2 x 2, against the CLI's single process
-    d = os.path.join(work, "mp_ci")
-    os.makedirs(d, exist_ok=True)
-    ci_fq = ci_sample(work)
-    wall, reports, lists = run_workers(split_pairs(ci_fq, d), os.path.join(d, "out"), 2, 2, 4096)
-    log_ranks("multiproc-ci", wall, reports)
-    cli_out = os.path.join(d, "cli")
-    cli_wall = run_cli(ci_fq, cli_out, (21,), ("--hosts", "2", "--shards", "4",
-                                               "--min-ctg-print-len", "0"))[0]
-    cli = [[seq, float(name.split()[1])] for name, seq in
-           read_fasta(os.path.join(cli_out, "final_assembly.fasta"))]
-    ok = lists[0] == lists[1] == cli and same_fasta(os.path.join(d, "out"), cli)
-    log(f"[multiproc-ci] {len(cli)} contigs; both ranks == the CLI's --hosts 2 --shards 4 k=21 "
-        f"({cli_wall:.2f} s) and the shared FASTA == its rendering: {ok}")
-    check(ok and len(cli) > 0, "the CI sample's two-process contigs differ from the CLI's")
-
-    # the community: two processes, then the single-process control
-    torch.cuda.empty_cache()
-    out = os.path.join(work, "mp_arctic")
-    wall, reports, lists = run_workers(fq, out, 2, 2, WORKER_BLOCK_READS)
-    log_ranks("multiproc", wall, reports)
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    counter = HierarchicalCounter(21, (2, 2), device="cuda")
-    n_reads = count_reads(counter, fq, 0, 1, 2 * WORKER_BLOCK_READS, "cuda")
-    table = counter.finalize()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    shards = shard_digests(table)
-    rows = table.words.shape[1]
-    ctrl = [list(c) for c in sorted(traverse_debruijn_graph_sharded(table, 21))]
-    t2 = time.perf_counter()
-    del table, counter
-    peak = torch.cuda.max_memory_allocated()
-    torch.cuda.empty_cache()
-    log(f"[multiproc] control (one process, 2 x 2): {n_reads} reads, counting {t1 - t0:.2f} s, "
-        f"traversal {t2 - t1:.2f} s, peak device memory {peak / 1e9:.2f} GB, table rows a shard "
-        f"{rows}, shards {[(n, dg[:16]) for n, dg in shards]}, {len(ctrl)} contigs")
-    for r in reports:
-        mine = shards[r["pid"] * 2 : r["pid"] * 2 + 2]
-        check(r["shards"] == mine, f"rank {r['pid']}: a shard table differs from the control's")
-        check(all(r["launches"][name] > 0 for name in SHARDED_KERNELS),
-              f"rank {r['pid']}: a sharded-path kernel never ran: {r['launches']}")
-        check(os.path.exists(os.path.join(out, "per_rank", "00000000", f"{r['pid']:08d}",
-                                          "mhm2_torch.log")), f"rank {r['pid']}: no log")
-    check(sum(r["reads"] for r in reports) == n_reads, "the ranks' reads != the control's")
-    check(lists[0] == lists[1] == ctrl and len(ctrl) > 0,
-          "the ranks' contigs differ from the control's")
-    check(same_fasta(out, ctrl), "the shared final_assembly.fasta differs from the control's")
-    log(f"[multiproc] both ranks' shard tables (live rows) == the control's shards; padded rows "
-        f"a shard {reports[0]['rows']} (control {rows}); contigs == the control's; shared "
-        "final_assembly.fasta == the control's rendering; per-rank logs present")
-
-    # one process over NCCL on the control's reads
-    out1 = os.path.join(work, "mp_nccl")
-    wall, reports1, lists1 = run_workers(fq, out1, 1, 4, 2 * WORKER_BLOCK_READS)
-    log_ranks("multiproc-nccl", wall, reports1)
-    backend = "backend nccl" in open(os.path.join(out1, "mhm2_torch.log")).read()
-    check(backend, "the one-process run did not take the NCCL backend")
-    check(reports1[0]["shards"] == shards and lists1[0] == ctrl,
-          "the one-process NCCL run differs from the control")
-    log("[multiproc-nccl] backend nccl; shard tables and contigs == the control's")
-    return {name: sum(r["launches"][name] for r in reports) for name in reports[0]["launches"]}
+    """Phase 10: CLI ranks over torch.distributed on the one card, the
+    community at k = 21 with --hosts 2 --shards 4, against the
+    single-process CLI at the same layout: two ranks that share the card
+    (gloo), then one rank (NCCL). Each run's final_assembly.fasta and
+    contigs-21.fasta equal the control's byte for byte, its log names its
+    backend, and each gloo rank has its per-rank log and launched every
+    kernel of the sharded path. Returns the two gloo ranks' launches summed."""
+    layout = ["-k", "21", "--hosts", "2", "--shards", "4"]
+    ctrl = os.path.join(work, "mp_one")
+    wall = run_cli(fq, ctrl, None, layout)[0]
+    log(f"[multiproc] control: one process, {' '.join(layout)}: {wall:.2f} s")
+    files = ("final_assembly.fasta", "contigs-21.fasta")
+    digests = [sha256(os.path.join(ctrl, f)) for f in files]
+    summed = {}
+    for n, backend in ((2, "gloo"), (1, "nccl")):
+        out = os.path.join(work, f"mp_{backend}")
+        wall, launches = run_ranks(["-r", fq, *layout], out, n)
+        said = f"process 0 of {n}, backend {backend}" in open(
+            os.path.join(out, "mhm2_torch.log")).read()
+        same = [sha256(os.path.join(out, f)) for f in files] == digests
+        log(f"[multiproc] {n} rank(s) over {backend}: wall {wall:.2f} s (process start and the "
+            f"libraries' load included), launches {launches}; the log names {backend}: {said}; "
+            f"{' and '.join(files)} == the control's: {same}")
+        check(said, f"the {n}-rank run did not take the {backend} backend")
+        check(same, f"the {n}-rank run's FASTA files differ from the control's")
+        if n > 1:
+            for pid, counts in enumerate(launches):
+                check(all(counts[k] > 0 for k in SHARDED_KERNELS),
+                      f"rank {pid}: a sharded-path kernel never ran: {counts}")
+                check(os.path.exists(os.path.join(out, "per_rank", "00000000", f"{pid:08d}",
+                                                  "mhm2_torch.log")), f"rank {pid}: no log")
+            summed = {k: sum(c[k] for c in launches) for k in launches[0]}
+    return summed
 
 
 MERGE_KEYS = ("merged", "m_len", "overlap", "m_codes", "m_quals", "quals1_z", "quals2_z")
@@ -2724,7 +2641,7 @@ def main(argv):
     # extract, finalize, join, collapse (scan, compact), ssw and minimizer
     # rows, only phase 8 (the 27 Mbp community with --shards 4, the
     # minimizer metered), or only phase 9 (the same with --hosts 2 --shards
-    # 4, the supermer stage metered), or only phase 10 (processes over
+    # 4, the supermer stage metered), or only phase 10 (CLI ranks over
     # torch.distributed on the one card), or only phase 2's lookup rows, or
     # only the pair-merge phase and the CI sample with the device merge, on
     # the package of DIR (default this checkout), e.g. a parent tree

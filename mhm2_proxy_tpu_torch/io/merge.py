@@ -335,7 +335,7 @@ def merge_reads_arrays(codes1, quals1, len1, codes2, quals2, len2, qual_offset=3
     if not use_native:
         reason = "the native merge is turned off"
     else:
-        reason = "the native merge library native/libmhm2_native.so is not available"
+        reason = "the host library libmhm2_host.so, with the native merge, is not available"
     _log_device_merge(reason, dev)
     args = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                  for x in (codes1, quals1, len1, codes2, quals2, len2))

@@ -1,85 +1,83 @@
-"""ctypes bindings for the host's native code: the pair merge and the
-stitcher of the shared library (native/, built on demand with make), and
-the port's own one-pass FASTQ parser (csrc/fastq_into.cpp).
+"""ctypes bindings for the port's host library: the port's one-pass FASTQ
+parser (csrc/fastq_into.cpp), and the pair merge and the stitcher of the
+JAX package's native sources (native/merge_native.cpp,
+native/stitch_native.cpp, read in place and never written).
 
-The parser is built by the C++ compiler into
-`mhm2_proxy_tpu_torch/_build/<hash>/libmhm2_fastq.so`, keyed by a hash of
-its source and flags, at its first use in a process; the library is linked
-under a temporary name and renamed into place, so a process never loads a
-half-written one. Without a compiler the ingest falls back to the
-pure-Python reader (the reference's CPU/GPU-style backend seam applied to
-ingest).
+The C++ compiler links the three sources into one library,
+`mhm2_proxy_tpu_torch/_build/<hash>/libmhm2_host.so`, at its first use in a
+process, through _native_build.build_library (keyed by a hash of the
+sources and flags, built under a temporary name and renamed into place),
+with native/Makefile's flags, so that the merge is the same code as that
+library's. Without a compiler, or where the build fails, the library is
+not available, and the log says why once: the ingest falls back to the
+pure-Python reader and the merge to the device merge (the reference's
+CPU/GPU-style backend seam).
 
-    c++ -O3 -march=native -fPIC -std=c++17 -Wall -shared \
-        -o libmhm2_fastq.so csrc/fastq_into.cpp
+    g++ -O3 -march=native -fPIC -std=c++17 -Wall -shared -o libmhm2_host.so \\
+        csrc/fastq_into.cpp native/merge_native.cpp native/stitch_native.cpp -lpthread
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libmhm2_native.so"))
-_PKG = Path(__file__).resolve().parent.parent
-_PARSE_SRC = _PKG / "csrc" / "fastq_into.cpp"
-_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+from .. import _native_build
 
-_lib = None
-_parse_lib = None  # the parser's library; False once it could not be built or loaded
+_PKG = Path(__file__).resolve().parent.parent
+_NATIVE = _PKG.parent / "native"
+SOURCES = (_PKG / "csrc" / "fastq_into.cpp", _NATIVE / "merge_native.cpp",
+           _NATIVE / "stitch_native.cpp")
+_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+_LIBS = ["-lpthread"]
+
+_lib = None  # the loaded library; False once it could not be built or loaded
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int32
+I64 = ctypes.c_int64
+_SIGNATURES = {  # entry point -> (restype, argtypes)
+    "fastq_parse_into": (I64, [P, I64, I64, I32, I64, I64, I64, ctypes.c_uint8, P, P, P, I64,
+                               P, P, P]),
+    "mhm2_merge_pairs": (I64, [P, P, P, P, P, P, I64, I64, I32, I32, P, P, P, P, P, P, P]),
+    "stitch_walk": (I64, [I64, I32, P, P, P, P, I64, P, P, P, I64]),
+}
+
+
+def _compile(tmp: Path):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        return "", "no C++ compiler (g++, c++) on PATH"
+    return _native_build.run([cxx, *_CXXFLAGS, "-o", str(tmp), *map(str, SOURCES), *_LIBS])
 
 
 def _load():
+    """The host library, built first if needed, or None."""
     global _lib
-    if _lib is not None:
-        return _lib
-    if not os.path.exists(_SO_PATH):
+    if _lib is None:
         try:
-            subprocess.run(
-                ["make", "-s"], cwd=os.path.abspath(_NATIVE_DIR), check=True,
-                capture_output=True,
-            )
-        except Exception:
-            return None
-    try:
-        lib = ctypes.CDLL(_SO_PATH)
-    except OSError:
-        return None
-    try:
-        lib.mhm2_merge_pairs.restype = ctypes.c_int64
-        lib.mhm2_merge_pairs.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-    except AttributeError:
-        # stale .so predating the merge engine; rebuild lazily next run
-        lib._has_merge = False
-    else:
-        lib._has_merge = True
-    try:
-        lib.stitch_walk.restype = ctypes.c_int64
-        lib.stitch_walk.argtypes = [
-            ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64,
-        ]
-    except AttributeError:
-        lib._has_stitch = False
-    else:
-        lib._has_stitch = True
-    _lib = lib
-    return lib
+            so, _ = _native_build.build_library("libmhm2_host.so", SOURCES, _CXXFLAGS + _LIBS,
+                                                _compile)
+            lib = ctypes.CDLL(str(so))
+        except (OSError, RuntimeError) as e:
+            from ..utils.logger import get_logger
+
+            lines = str(e).splitlines() or [repr(e)]  # the first names build.log
+            why = "\n  ".join(lines[:1] + lines[1:][-5:])
+            get_logger().warning("the host library (io/native.py) did not build or load, so the "
+                                 "ingest runs the Python reader and the merge the device merge:"
+                                 f"\n  {why}")
+            lib = False
+        else:
+            for name, (res, args) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = res, args
+        _lib = lib
+    return _lib or None
 
 
 def get_stitch_walk():
@@ -89,7 +87,7 @@ def get_stitch_walk():
     out_buf u8, out_start i64, out_nstates i64, out_depth i64) -> n_paths.
     """
     lib = _load()
-    if lib is None or not getattr(lib, "_has_stitch", False):
+    if lib is None:
         return None
 
     def walk(succ, base, counts, k, buf, starts, nst, dep):
@@ -108,42 +106,8 @@ def get_stitch_walk():
     return walk
 
 
-def _build_parse():
-    """Build (if its hash is new) and load the parser's library, or None."""
-    h = hashlib.sha256(" ".join(_CXXFLAGS).encode() + _PARSE_SRC.read_bytes()).hexdigest()[:16]
-    so = _PKG / "_build" / h / "libmhm2_fastq.so"
-    if not so.exists():
-        cxx = shutil.which("c++") or shutil.which("g++")
-        if cxx is None:
-            return None
-        tmp = so.with_name(f"libmhm2_fastq.{os.getpid()}.tmp.so")
-        try:
-            so.parent.mkdir(parents=True, exist_ok=True)
-            subprocess.run([cxx, *_CXXFLAGS, "-o", str(tmp), str(_PARSE_SRC)],
-                           check=True, capture_output=True)
-            os.replace(tmp, so)
-        except (OSError, subprocess.SubprocessError):
-            tmp.unlink(missing_ok=True)
-            return None
-    try:
-        lib = ctypes.CDLL(str(so))
-    except OSError:
-        return None
-    lib.fastq_parse_into.restype = ctypes.c_int64
-    lib.fastq_parse_into.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    return lib
-
-
 def parse_into_available() -> bool:
-    global _parse_lib
-    if _parse_lib is None:
-        _parse_lib = _build_parse() or False
-    return _parse_lib is not False
+    return _load() is not None
 
 
 def parse_into(buf: np.ndarray, offset: int, final: bool, row0: int, codes, quals, lens,
@@ -170,7 +134,7 @@ def parse_into(buf: np.ndarray, offset: int, final: bool, row0: int, codes, qual
         raise RuntimeError("parse_into: the parser's library could not be built")
     out = np.zeros(4, np.int64)
     p = lambda a: None if a is None else a.ctypes.data_as(ctypes.c_void_p)
-    got = _parse_lib.fastq_parse_into(
+    got = _load().fastq_parse_into(
         p(buf), buf.size, offset, int(final), row0, B, L, qual_pad,
         p(codes), p(quals), p(lens),
         0 if hdrs is None else hdrs.shape[1], p(hdrs), p(hdr_lens), p(out),
@@ -179,8 +143,7 @@ def parse_into(buf: np.ndarray, offset: int, final: bool, row0: int, codes, qual
 
 
 def merge_available() -> bool:
-    lib = _load()
-    return lib is not None and getattr(lib, "_has_merge", False)
+    return _load() is not None
 
 
 def merge_pairs(codes1, quals1, len1, codes2, quals2, len2, qual_offset=33,
@@ -191,7 +154,6 @@ def merge_pairs(codes1, quals1, len1, codes2, quals2, len2, qual_offset=33,
     merged, m_codes, m_quals, m_len, overlap, quals1_z, quals2_z,
     n_ambiguous.
     """
-    lib = _load()
     c1 = np.ascontiguousarray(codes1, np.uint8)
     c2 = np.ascontiguousarray(codes2, np.uint8)
     q1 = np.ascontiguousarray(quals1, np.uint8)
@@ -209,7 +171,7 @@ def merge_pairs(codes1, quals1, len1, codes2, quals2, len2, qual_offset=33,
     q1z = np.empty((B, L), np.uint8)
     q2z = np.empty((B, L), np.uint8)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    n_ambig = lib.mhm2_merge_pairs(
+    n_ambig = _load().mhm2_merge_pairs(
         p(c1), p(q1), p(l1), p(c2), p(q2), p(l2),
         B, L, qual_offset, n_threads,
         p(merged), p(m_codes), p(m_quals), p(m_len), p(overlap), p(q1z), p(q2z),

@@ -1,13 +1,14 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu -> one shared library).
+"""Build and load the port's CUDA kernels.
 
-nvcc compiles every source under csrc/ for sm_90a into
-`mhm2_proxy_tpu_torch/_build/<hash>/libmhm2_kernels.so`, keyed by a hash of
-the sources and flags, at the first kernel launch of a process; ctypes
-loads it. One nvcc per source runs in parallel, then one links them. The
-sources have a plain C interface and include no PyTorch header, so a build
-takes seconds. A failed build raises: there is no fallback.
+nvcc compiles every source under csrc/*.cu for sm_90a into
+`_build/<hash>/libmhm2_kernels.so` at the first kernel launch of a process,
+through _native_build.build_library (keyed by a hash of the sources and
+flags, built under a temporary name and renamed into place); ctypes loads
+it. One nvcc per source runs in parallel, then one links them. The sources
+have a plain C interface and include no PyTorch header, so a build takes
+seconds. A failed build raises: there is no fallback.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
          -c -o <name>.o csrc/<name>.cu           # each source, all at once
     nvcc -shared -o libmhm2_kernels.so *.o
 """
@@ -15,16 +16,15 @@ takes seconds. A failed build raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from .._native_build import build_library, run
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -77,12 +77,28 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for f in _sources():
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
-    return h.hexdigest()[:16]
+def _compile_kernels(tmp: Path) -> tuple[str, str | None]:
+    """Each csrc/*.cu to an object by its own nvcc, all at once, then one
+    link into tmp."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{src.stem}.{tmp.stem}.o")
+        cmd = [nvcc, *FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, err = [], None
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0 and err is None:
+            err = out
+    if err is None:
+        line, err = run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _c, o, _p in jobs]])
+        log.append(line)
+    for _c, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    return "\n".join(log), err
 
 
 def load():
@@ -90,40 +106,7 @@ def load():
     global _lib, build_seconds, library_path
     if _lib is not None:
         return _lib
-    out_dir = BUILD_DIR / source_hash()
-    so = out_dir / "libmhm2_kernels.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        nvcc = _nvcc()
-        tag = f"{os.getpid()}.tmp"
-        jobs = []
-        for src in sorted(CSRC.glob("*.cu")):
-            obj = out_dir / f"{src.stem}.{tag}.o"
-            cmd = [nvcc, *FLAGS, "-c", "-o", str(obj), str(src)]
-            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                    stderr=subprocess.STDOUT, text=True)))
-        log = []
-        failed = []
-        for cmd, _obj, proc in jobs:
-            out, _ = proc.communicate()
-            log.append(" ".join(cmd) + "\n" + out)
-            if proc.returncode != 0:
-                failed.append(out)
-        tmp = out_dir / f"libmhm2_kernels.{tag}.so"
-        if not failed:
-            cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _c, o, _p in jobs]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                failed.append(res.stderr)
-        for _c, obj, _p in jobs:
-            obj.unlink(missing_ok=True)
-        (out_dir / "build.log").write_text("\n".join(log))
-        if failed:
-            raise RuntimeError(f"nvcc failed building {so}:\n{failed[0][-4000:]}")
-        os.replace(tmp, so)
-        build_seconds = time.perf_counter() - t0
+    so, build_seconds = build_library("libmhm2_kernels.so", _sources(), FLAGS, _compile_kernels)
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)

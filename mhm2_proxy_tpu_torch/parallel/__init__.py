@@ -4,9 +4,9 @@ exchange, and runs over several processes (torch.distributed, comm.py)."""
 
 from .comm import all_to_all
 from .multihost import (HierarchicalCounter, check_read_id_disjointness, host_byte_ranges,
-                        init_multihost, min_sum_max, write_fasta_multihost)
+                        init_multihost, min_sum_max)
 from .sharded import ShardedCounter, ShardedTable, sharded_lookup
 
 __all__ = ["HierarchicalCounter", "ShardedCounter", "ShardedTable", "all_to_all",
            "check_read_id_disjointness", "host_byte_ranges", "init_multihost", "min_sum_max",
-           "sharded_lookup", "write_fasta_multihost"]
+           "sharded_lookup"]

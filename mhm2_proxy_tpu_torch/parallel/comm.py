@@ -7,22 +7,21 @@ rank holds every shard and each collective is its local identity (the
 all-to-all a transpose). With a group, even one of a single rank, each
 collective goes through torch.distributed.
 
-What crosses ranks is counted in TRANSPORT: the bytes a rank sent to other
-ranks (its own chunk of an all-to-all stays home) and the collective calls,
-always; and, while meter_transport(True) is on, the seconds spent in the
-collectives. Each collective also counts `sent_bytes` and `collectives` on
-the innermost open span of utils/trace.py, and an all-to-all its bytes as
-`alltoall_bytes` besides; its callers open `stage()` spans
-around them (`count.exchange`, `traverse.exchange`). Timing a collective, or
-recording a trace, drains the device's queued work before and after it, so
-that the time is the transport's own; that serializes the stream around
-every collective, so it is off unless a measurement asks for it.
+The spans of utils/trace.py are the one record of what crosses ranks.
+Each collective counts, on the innermost open span, `sent_bytes` (the
+bytes the rank sends to other ranks; its own chunk of an all-to-all stays
+home) and `collectives` (one a call), and an all-to-all its bytes as
+`alltoall_bytes` besides; its callers open `stage()` spans around them
+(`count.exchange`, `traverse.exchange`), so a job's sums over its spans
+hold every byte and call. While a trace records, a collective drains the
+device's queued work before and after it, so that its span holds the
+transport's own time; that serializes the stream around every collective,
+so untraced nothing is drained.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
 import numpy as np
 import torch
@@ -35,11 +34,6 @@ from ..utils import trace
 COUNT_EXCHANGE = "count.exchange"
 TRAVERSE_EXCHANGE = "traverse.exchange"
 
-# bytes sent to other ranks, seconds in collectives (metered runs only),
-# collective calls
-TRANSPORT = dict(bytes=0, seconds=0.0, calls=0)
-_METER = [False]
-
 
 def active() -> bool:
     return dist.is_available() and dist.is_initialized()
@@ -51,15 +45,6 @@ def world() -> int:
 
 def rank() -> int:
     return dist.get_rank() if active() else 0
-
-
-def reset_transport() -> None:
-    TRANSPORT.update(bytes=0, seconds=0.0, calls=0)
-
-
-def meter_transport(on: bool) -> None:
-    """Time every collective from now on (on) or stop timing them."""
-    _METER[0] = bool(on)
 
 
 def _scalar_device() -> torch.device:
@@ -89,33 +74,24 @@ def stage(name: str, **counters):
         yield sp
 
 
-class _timed:
-    """Counts one collective (in TRANSPORT, and as `sent_bytes` and
-    `collectives` on the innermost span, an all-to-all's bytes also as
-    `alltoall_bytes`); while metering is on or a trace records, drains the
-    device's queued work before and after it, and while metering, times
-    it."""
+class _counted:
+    """Counts one collective as `sent_bytes` and `collectives` on the
+    innermost span, an all-to-all's bytes also as `alltoall_bytes`; while a
+    trace records, drains the device's queued work before and after it."""
 
     def __init__(self, tensor: torch.Tensor | None = None, sent: int = 0,
                  alltoall: bool = False):
-        self.meter = _METER[0]
-        self.cuda = ((self.meter or trace.is_recording()) and tensor is not None
-                     and tensor.is_cuda)
+        self.cuda = trace.is_recording() and tensor is not None and tensor.is_cuda
         self.sent = sent
         self.alltoall = alltoall
 
     def __enter__(self):
         if self.cuda:
             torch.cuda.synchronize()
-        self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         if self.cuda:
             torch.cuda.synchronize()
-        if self.meter:
-            TRANSPORT["seconds"] += time.perf_counter() - self.t0
-        TRANSPORT["bytes"] += self.sent
-        TRANSPORT["calls"] += 1
         trace.count("sent_bytes", self.sent)
         if self.alltoall:
             trace.count("alltoall_bytes", self.sent)
@@ -134,7 +110,7 @@ def exchange(send: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"exchange: leading axis {send.shape[0]} for {W} ranks")
     send = send.contiguous()
     recv = torch.empty_like(send)
-    with _timed(send, send.numel() * send.element_size() * (W - 1) // W, alltoall=True):
+    with _counted(send, send.numel() * send.element_size() * (W - 1) // W, alltoall=True):
         dist.all_to_all_single(recv, send)
     return recv
 
@@ -156,7 +132,7 @@ def exchange_rows(send: torch.Tensor, fill: torch.Tensor):
     n_in = fill_in.reshape(world(), -1).sum(1).tolist()
     got = torch.empty((sum(n_in), *send.shape[lead + 1:]), dtype=send.dtype, device=send.device)
     sent = (sum(n_out) - n_out[rank()]) * rows[:1].numel() * rows.element_size()
-    with _timed(send, sent, alltoall=True):
+    with _counted(send, sent, alltoall=True):
         dist.all_to_all_single(got, rows.contiguous(), output_split_sizes=n_in,
                                input_split_sizes=n_out)
     recv = torch.zeros(send.shape, dtype=send.dtype, device=send.device)
@@ -195,7 +171,7 @@ def _reduce(values, op: str):
     out = list(values)
     if active():
         t = torch.tensor(out, dtype=torch.int64, device=_scalar_device())
-        with _timed(t):
+        with _counted(t):
             dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
         out = t.tolist()
     return out[0] if len(values) == 1 else out
@@ -218,7 +194,7 @@ def all_sum_tensor(t: torch.Tensor) -> torch.Tensor:
     if not active():
         return t
     x = t.to(_scalar_device(), copy=True)
-    with _timed(x):
+    with _counted(x):
         dist.all_reduce(x)
     return x.to(t.device)
 
@@ -230,7 +206,7 @@ def all_gather_array(values, dtype=np.int64) -> np.ndarray:
         return a[None]
     t = torch.from_numpy(a).to(_scalar_device())
     out = torch.empty((world() * a.size,), dtype=t.dtype, device=t.device)
-    with _timed(t):
+    with _counted(t):
         dist.all_gather_into_tensor(out, t)
     return out.cpu().numpy().reshape(world(), a.size)
 
@@ -258,7 +234,7 @@ def all_gather_bytes(payload: bytes) -> list[bytes]:
         buf[: len(payload)] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     buf = buf.to(dev)
     out = torch.empty((world() * n,), dtype=torch.uint8, device=dev)
-    with _timed(buf, n * (world() - 1)):
+    with _counted(buf, n * (world() - 1)):
         dist.all_gather_into_tensor(out, buf)
     host = out.cpu().numpy().reshape(world(), n)
     return [host[w, : int(sizes[w])].tobytes() for w in range(world())]
@@ -266,5 +242,5 @@ def all_gather_bytes(payload: bytes) -> list[bytes]:
 
 def barrier() -> None:
     if active():
-        with _timed():
+        with _counted():
             dist.barrier()

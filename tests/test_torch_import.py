@@ -19,7 +19,7 @@ def test_port_imports_no_jax():
         "from mhm2_proxy_tpu_torch.models import assembler, post_asm\n"
         "from mhm2_proxy_tpu_torch.ops import (bitkmer, compact, count, extract, finalize,\n"
         "    join, kernels, lookup, minimizer, scan, sort, ssw, u32, u64, _build)\n"
-        "from mhm2_proxy_tpu_torch.parallel import comm, multihost, sharded, worker\n"
+        "from mhm2_proxy_tpu_torch.parallel import comm, multihost, sharded\n"
         "from mhm2_proxy_tpu_torch import launcher, parse_run_log\n"
         "from mhm2_proxy_tpu_torch.dbjg import traverse_sharded, stitch_sharded\n"
         "from mhm2_proxy_tpu_torch.io import merge, native, gfa, stream\n"

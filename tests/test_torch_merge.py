@@ -283,8 +283,8 @@ def test_missing_library_runs_the_device_merge(block, ref, monkeypatch, caplog):
         got = P.merge_reads_arrays(*block["arrays"], device="cpu")
         P.merge_reads_arrays(*block["arrays"], device="cpu")
     said = [r.getMessage() for r in caplog.records if "pair merge" in r.getMessage()]
-    assert said == ["pair merge: the block-vectorized merge on cpu (the native merge library "
-                    "native/libmhm2_native.so is not available)"]  # once a process
+    assert said == ["pair merge: the block-vectorized merge on cpu (the host library "
+                    "libmhm2_host.so, with the native merge, is not available)"]  # once a process
     _assert_rows_equal(ref["native"], got)
     assert int(got["n_ambiguous"]) == ref["native"]["n_ambiguous"]
 

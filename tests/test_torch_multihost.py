@@ -202,25 +202,6 @@ def test_host_byte_ranges_equal_reference(size, hosts):
     assert host_byte_ranges(size, hosts) == ref_ranges(size, hosts)
 
 
-def test_write_fasta_single_process_equals_reference(tmp_path):
-    """Two payloads written at their offsets from one process (the sizes
-    given), as tests/test_multihost.py writes them, byte-identical to the
-    reference's file."""
-    from mhm2_proxy_tpu.parallel import write_fasta_multihost as ref_write
-    from mhm2_proxy_tpu_torch.parallel.multihost import write_fasta_multihost
-
-    payloads = [b">Contig0 1.0\nACGT\n", b">Contig1 2.0\nGGTT\n"]
-    sizes = [len(p) for p in payloads]
-    for name, fn in (("ref", ref_write), ("port", write_fasta_multihost)):
-        for pid in (0, 1):  # rank 0 creates and sizes the file
-            assert fn(str(tmp_path / name), payloads[pid], pid, 2, sizes=sizes) == sum(sizes)
-    assert open(tmp_path / "port", "rb").read() == open(tmp_path / "ref", "rb").read()
-    assert open(tmp_path / "port", "rb").read() == b"".join(payloads)
-    # the sizes gathered (a world of one)
-    assert write_fasta_multihost(str(tmp_path / "one"), payloads[0], 0, 1) == sizes[0]
-    assert open(tmp_path / "one", "rb").read() == payloads[0]
-
-
 def test_min_sum_max_and_id_spans_single_process():
     from mhm2_proxy_tpu.parallel import min_sum_max as ref_msm
     from mhm2_proxy_tpu.parallel.multihost import check_read_id_disjointness as ref_check

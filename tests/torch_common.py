@@ -109,22 +109,21 @@ def hierarchical_rank(rank, world, port, D, cap, k, inp, out):
 
 def traced_rank(rank, world, port, argv, out):
     """One CLI process of a `world`-rank run on the CPU over gloo, for
-    torch.multiprocessing.spawn: run_pipeline on argv while a trace records;
-    the `sent_bytes` and `collectives` summed by span name, and the
-    transport's own counts, go to out + rank (JSON)."""
+    torch.multiprocessing.spawn: run_pipeline on argv while a trace records,
+    inside one more span, `outside`, which counts whatever the pipeline
+    sends outside every span of its own; the `sent_bytes` and `collectives`
+    summed by span name go to out + rank (JSON)."""
     import json
 
     from mhm2_proxy_tpu_torch.main import run_pipeline
     from mhm2_proxy_tpu_torch.options import parse_args
-    from mhm2_proxy_tpu_torch.parallel import comm
     from mhm2_proxy_tpu_torch.parallel.multihost import init_multihost
     from mhm2_proxy_tpu_torch.utils import trace
 
     torch.set_num_threads(1)
     os.environ.update(MHM2_TPU_PROC_ID=str(rank), MHM2_TPU_NUM_PROCS=str(world))
     init_multihost(f"localhost:{port}", world, rank, device="cpu")
-    comm.reset_transport()
-    with trace.recording(syncs=False) as spans:
+    with trace.recording(syncs=False) as spans, trace.span("outside"):
         run_pipeline(parse_args(argv))
     rows = {}
     for s in spans:
@@ -133,5 +132,5 @@ def traced_rank(rank, world, port, argv, out):
         for c in ("sent_bytes", "alltoall_bytes", "collectives", "records"):
             row[c] = row.get(c, 0) + s.counters.get(c, 0)
     with open(f"{out}{rank}.json", "w") as f:
-        json.dump(dict(spans=rows, transport=dict(comm.TRANSPORT)), f)
+        json.dump(dict(spans=rows), f)
     torch.distributed.destroy_process_group()
