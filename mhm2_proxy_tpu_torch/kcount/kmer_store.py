@@ -123,6 +123,16 @@ def render_kmer_dump(words, count, left, right, k: int) -> bytes:
     return out.tobytes()
 
 
+def to_device(a, dev, dtype=None) -> torch.Tensor:
+    """A block's array on dev: a CPU tensor (PackedReads.count_blocks, pinned
+    on a card's host) goes without blocking, which is safe without an event
+    because those blocks are never written once built; an array (as dtype,
+    if given) as a blocking copy."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, non_blocking=True)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+
 def _combine_pieces(pieces):
     """Concatenate ranged-fold pieces (words + three payload arrays: a
     FinalTable's count, left, right, or an aggregate's count, l4, r4), each
@@ -185,20 +195,18 @@ class KmerCountStore:
     # -- read pass ---------------------------------------------------------
 
     def add_reads_block(self, codes, qual_ok, lens):
-        """Count one block of reads (numpy codes (B,L) u8, qual_ok (B,L) bool,
-        lens (B,) int32): ONE sorted raw run, trimmed to its valid rows
-        (max(0, len-k-1) per read, known on the host)."""
+        """Count one block of reads (codes (B,L) u8 and qual_ok (B,L) bool,
+        numpy or CPU tensors; numpy lens (B,) int32): ONE sorted raw run,
+        trimmed to its valid rows (max(0, len-k-1) per read, known on the
+        host)."""
         lens_np = np.asarray(lens, np.int32)
         n_valid = int(np.maximum(lens_np.astype(np.int64) - self.k - 1, 0).sum())
         trace.count("h2d_bytes", codes.nbytes + qual_ok.nbytes + lens_np.nbytes)
         trace.count("raw_rows", n_valid)
         dev = self.device
         fn = C.block_to_raw_run if self._raw_packed else C.block_to_raw_run_sep
-        run = fn(
-            torch.from_numpy(np.ascontiguousarray(codes)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(qual_ok)).to(dev),
-            torch.from_numpy(lens_np).to(dev), self.k,
-        )
+        run = fn(to_device(codes, dev), to_device(qual_ok, dev),
+                 torch.from_numpy(lens_np).to(dev), self.k)
         self.raw_runs.append(tuple(x[:n_valid].clone() for x in run))
         del run
         self.stats["blocks"] += 1

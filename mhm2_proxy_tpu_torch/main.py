@@ -216,6 +216,7 @@ def _run(opts: Options) -> Assembler:
                 # fault injection for supervisor tests: die hard AFTER the
                 # round's checkpoint is on disk (launcher.py auto-resume)
                 os.kill(os.getpid(), 9)
+        asm.packed_reads.release_count_blocks()
 
         if not opts.post_asm_only:
             asm.dump_contigs(os.path.join(out_dir, "final_assembly.fasta"))

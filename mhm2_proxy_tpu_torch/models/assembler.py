@@ -17,7 +17,6 @@ alone writes the FASTA files, whose contigs every rank holds.
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import math
 
 import numpy as np
@@ -487,27 +486,23 @@ class Assembler:
 
     def _read_blocks(self, store, B: int, L: int, k: int):
         """The round's read blocks as add_reads_block's arguments: codes,
-        the quality mask and lengths. A rank that holds its own reads
-        (read_split()) passes them in blocks of B / S rows a local shard, as
-        many blocks as the rank with most reads makes, the rest empty; a rank
-        that holds every read passes its shards' rows of each block."""
-        cut = self.cfg.qual_offset + QUAL_CUTOFF
+        the quality mask and lengths, from the reads' counting blocks
+        (PackedReads.count_blocks, built in the job's first round). A rank
+        that holds its own reads (read_split()) passes them in blocks of
+        B / S rows a local shard, as many blocks as the rank with most reads
+        makes, the rest empty; a rank that holds every read passes its
+        shards' rows of each block."""
+        reads = self.packed_reads
+        kw = dict(qual_cut=self.cfg.qual_offset + QUAL_CUTOFF, min_len=k,
+                  pin=self.device.type == "cuda")
         if self.own_reads and hasattr(store, "n_local"):
             b = B // store.S * store.n_local
-            # every row of the packed blocks, empty ones too, is a block row
-            rows = sum(len(blk[2]) for blk in self.packed_reads._blocks)
             with comm.stage(comm.COUNT_EXCHANGE):
-                n_blocks = comm.all_max(max(1, -(-rows // b)))
-            empty = (np.full((b, L), 4, np.uint8), np.zeros((b, L), np.uint8),
-                     np.zeros((b,), np.int32))
-            blocks = itertools.islice(
-                itertools.chain(self.packed_reads.blocks(b, pad_len=L, min_len=k),
-                                itertools.repeat(empty)), n_blocks)
+                n_blocks = comm.all_max(reads.n_blocks(b))
+            yield from reads.count_blocks(b, L, n_blocks=n_blocks, **kw)
         else:
-            blocks = (_rank_rows(store, *blk)
-                      for blk in self.packed_reads.blocks(B, pad_len=L, min_len=k))
-        for codes, quals, lens in blocks:
-            yield codes, quals >= cut, lens
+            for blk in reads.count_blocks(B, L, **kw):
+                yield _rank_rows(store, *blk)
 
     @staticmethod
     def _dump_sharded_kmers(table, k: int, fname: str):
@@ -570,6 +565,7 @@ class Assembler:
         for k in kmer_lens or self.cfg.kmer_lens:
             with trace.span("round", k=k):
                 self.run_round(k)
+        self.packed_reads.release_count_blocks()
         return self.contigs
 
     # -- output ------------------------------------------------------------

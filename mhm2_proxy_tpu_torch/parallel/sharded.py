@@ -32,7 +32,7 @@ import torch
 
 from ..constants import MAX_KMER_COUNT, minimizer_len_for_k, words32_for_k
 from ..kcount.kmer_store import (FinalTable, _aggregate_ctg_records, _apply_ctg_rules,
-                                 _merge_ctg_aggregates)
+                                 _merge_ctg_aggregates, to_device)
 from ..ops import bitkmer as bk
 from ..ops import count as C
 from ..ops.lookup import table_lookup
@@ -306,9 +306,9 @@ class ShardedCounter:
         self.stat_collapsed = 0
 
     def add_reads_block(self, codes, qual_ok, lens):
-        """codes (D*B, L) uint8, qual_ok (D*B, L) bool, lens (D*B,) numpy
-        arrays: rows [s*B, (s+1)*B) are the reads of the rank's source shard
-        s; every rank passes a block of the same shape."""
+        """codes (D*B, L) uint8 and qual_ok (D*B, L) bool, numpy or CPU
+        tensors, numpy lens (D*B,): rows [s*B, (s+1)*B) are the reads of the
+        rank's source shard s; every rank passes a block of the same shape."""
         self._add_block(codes, qual_ok, lens, None)
 
     def add_ctgs_block(self, codes, lens, depths):
@@ -319,7 +319,7 @@ class ShardedCounter:
     def _add_block(self, codes, qual_ok, lens, depths):
         ctg_mode = depths is not None
         S, D, k = self.S, self.n_local, self.k
-        SB, L = np.asarray(codes).shape
+        SB, L = np.shape(codes)
         if SB % D:
             raise ValueError(f"a block's {SB} rows do not divide over {D} shards")
         with comm.stage(COUNT_EXCHANGE):
@@ -337,10 +337,9 @@ class ShardedCounter:
         cap = max(floor, kmer_cap // SMAX * 3) if self.use_supermers else kmer_cap
         fns = _record_fns(k, S, self.use_supermers, ctg_mode)
         dev = self.device
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
         payload, target, valid, n_kmers = fns.make_records(
-            to_dev(codes), to_dev(np.asarray(qual_ok, bool)), to_dev(np.asarray(lens, np.int32)),
-            to_dev(depths) if ctg_mode else None, D)
+            to_device(codes, dev), to_device(qual_ok, dev, bool), to_device(lens, dev, np.int32),
+            to_device(depths, dev) if ctg_mode else None, D)
         payload, target, valid, n_pre = _presum_duplicates(
             payload, target, valid, fns.count_of, fns.with_count, fns.mode)
         n_sent, n_over, n_comb, left = self._exchange(payload, target, valid, cap, fns)

@@ -1190,3 +1190,47 @@ def test_ranged_store_finalize(cuda, k):
     assert n > 0 and int(tables["cuda"][4]) == n
     for g, w in zip(tables["cuda"][:4], tables["cpu"][:4]):
         assert np.array_equal(g[:n], w[:n])
+
+
+@pytest.mark.parametrize("k", [21, 77])
+def test_store_round_from_pinned_count_blocks(cuda, k):
+    """PackedReads.count_blocks pins its blocks for a card, and a
+    KmerCountStore round fed them (their copies do not block) gives the
+    table it gives from numpy blocks of the same reads, at the same peak of
+    device memory; k = 77 takes the separate-payload path."""
+    from mhm2_proxy_tpu_torch.io.reads import PackedReads
+    from mhm2_proxy_tpu_torch.kcount import KmerCountStore
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 20000).astype(np.uint8)
+    reads = PackedReads()
+    for n in (3000, 1700, 2600):
+        lens = rng.integers(k // 2, 151, n).astype(np.int32)
+        start = rng.integers(0, len(genome) - 150, n)
+        codes = genome[start[:, None] + np.arange(150)]
+        codes = np.where(rng.random(codes.shape) < 0.01, rng.integers(0, 5, codes.shape), codes)
+        reads.add_block(codes.astype(np.uint8), rng.integers(33, 75, codes.shape).astype(np.uint8),
+                        lens)
+    rows, L, cut = 2048, 160, 53
+    pinned = list(reads.count_blocks(rows, L, cut, min_len=k, pin=True))
+    assert len(pinned) == 4
+    assert all(c.is_pinned() and ok.is_pinned() for c, ok, _ in pinned)
+    numpy_blocks = [(c, q >= cut, ln) for c, q, ln in reads.blocks(rows, pad_len=L, min_len=k)]
+    tables, peaks = {}, {}
+    # the first round on a device allocates the look-back kernels' scratch,
+    # which stays: a warm-up round, so that both measured rounds find it
+    for name, blocks in (("warm-up", numpy_blocks), ("pinned", pinned), ("numpy", numpy_blocks)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        st = KmerCountStore(k, device=cuda)
+        for blk in blocks:
+            st.add_reads_block(*blk)
+        tables[name] = st.finalize().to_numpy()
+        peaks[name] = torch.cuda.max_memory_allocated(cuda)
+        del st
+    n = int(tables["numpy"][4])
+    assert n > 0 and int(tables["pinned"][4]) == n
+    for g, w in zip(tables["pinned"][:4], tables["numpy"][:4]):
+        assert np.array_equal(g[:n], w[:n])
+    assert peaks["pinned"] == peaks["numpy"]

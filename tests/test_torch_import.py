@@ -110,12 +110,13 @@ def test_unported_paths_raise():
 # lines that differ (the --device option and prog name, the citation of the
 # reference's source, the logger's file name; the launcher's child module,
 # its two torch out-of-memory markers and torch.distributed; the parser's
-# log name and its note on the multi-process [module] line). io/stream.py
+# log name and its note on the multi-process [module] line; the packed
+# reads' counting blocks, built once a job in pinned memory). io/stream.py
 # and io/native.py are no copies since the port parses FASTQ in one pass
 # into the block being filled: tests/test_torch_stream.py holds the
 # port's blocks against the JAX package's instead.
 COPIED_MODULES = {
-    "io/fastq.py": 0, "io/reads.py": 0, "io/fasta.py": 0, "utils/synth.py": 0,
+    "io/fastq.py": 0, "io/reads.py": 97, "io/fasta.py": 0, "utils/synth.py": 0,
     "constants.py": 2, "options.py": 25, "io/gfa.py": 7, "utils/logger.py": 8,
     "launcher.py": 8, "parse_run_log.py": 7,
 }

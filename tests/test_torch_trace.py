@@ -268,6 +268,44 @@ def test_run_pipeline_spans_and_the_timings_they_feed(fastq, tmp_path, monkeypat
         assert parent[spans[child][0].parent] == up, child
 
 
+def test_count_blocks_built_in_the_first_round_only(fastq, tmp_path, monkeypatch):
+    """A three-round ladder builds its counting blocks in the first round's
+    `count.pack` spans and serves every later round's from them; its
+    contigs equal those of the ladder fed PackedReads.blocks() as numpy
+    arrays, the stores' other input path."""
+    from mhm2_proxy_tpu_torch.constants import QUAL_CUTOFF
+    from mhm2_proxy_tpu_torch.models import assembler
+
+    ks = ("21", "33", "55")
+    with trace.recording(syncs=False) as rec:
+        asm = _run(fastq, tmp_path / "cached", "-k", *ks)
+    packs: dict = {}
+    for s in by_name(rec)["count.pack"]:
+        packs.setdefault(s.attrs["k"], []).append(s.counters)
+    assert sorted(packs) == [21, 33, 55]
+    n_blocks = asm.round_stats[21]["blocks"]
+    assert n_blocks >= 2 and {r["blocks"] for r in asm.round_stats.values()} == {n_blocks}
+    built = [sum(c.get("built_bytes", 0) for c in packs[k]) for k in (21, 33, 55)]
+    reused = [sum(c.get("reused_blocks", 0) for c in packs[k]) for k in (21, 33, 55)]
+    assert built[0] > 0 and built[1:] == [0, 0]
+    assert reused == [0, n_blocks, n_blocks]
+
+    def numpy_blocks(self, store, B, L, k):
+        cut = self.cfg.qual_offset + QUAL_CUTOFF
+        for codes, quals, lens in self.packed_reads.blocks(B, pad_len=L, min_len=k):
+            yield codes, quals >= cut, lens
+
+    monkeypatch.setattr(assembler.Assembler, "_read_blocks", numpy_blocks)
+    plain = _run(fastq, tmp_path / "numpy", "-k", *ks)
+    for name in [f"contigs-{k}.fasta" for k in ks] + ["final_assembly.fasta"]:
+        got, want = (open(tmp_path / d / name).read() for d in ("cached", "numpy"))
+        assert got == want and got.count(">") >= 1, name
+    assert plain.round_stats.keys() == asm.round_stats.keys()
+    for k, st in asm.round_stats.items():
+        assert (st["kmers"], st["raw_rows"]) == (plain.round_stats[k]["kmers"],
+                                                 plain.round_stats[k]["raw_rows"])
+
+
 def test_stitch_stage_seconds_only_while_recording(fastq, tmp_path, monkeypatch):
     """The untraced path passes no timings dict to the stitch, so none of its
     stages syncs the device; the `stitch {...}` line keeps its counts."""
