@@ -305,7 +305,8 @@ def sw_cigar_batch(query, q_len, ref, r_len, aln: dict, match=1, mismatch=1, gap
     timings, when given, accumulates the seconds of the DP ("tb_dp_s"), the
     walk ("tb_walk_s") and the rendering ("cigar_render_s"), each ending at
     a sync of the device's queued work; while a trace records, each is a
-    span "post_asm." + its key without "_s"."""
+    span "post_asm." + its key without "_s", the DP's counting `tb_bytes`
+    (its traceback codes, B x (Nr+1) x (Nq+1) bytes)."""
     t0 = trace.now()
     query = torch.as_tensor(query)
     ref = torch.as_tensor(ref, device=query.device)
@@ -333,7 +334,7 @@ def sw_cigar_batch(query, q_len, ref, r_len, aln: dict, match=1, mismatch=1, gap
                          255).to(torch.uint8)
     tb = global_tb_pointers(q_clip, r_clip, match=match, mismatch=mismatch, gap_open=gap_open,
                             gap_extend=gap_extend, ambiguity=ambiguity)
-    t0 = trace.lap(timings, "tb_dp_s", t0, dev, "post_asm.")
+    t0 = trace.lap(timings, "tb_dp_s", t0, dev, "post_asm.", tb_bytes=tb.numel())
     ops_rev, n_ops = _traceback_walk(tb, q_clip, r_clip, nq, nr)
     del tb
     t0 = trace.lap(timings, "tb_walk_s", t0, dev, "post_asm.")

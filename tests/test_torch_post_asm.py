@@ -1,6 +1,9 @@
 """The port's post-assembly alignment (models/post_asm.py, ops/lookup.py
 table_lookup) against the JAX reference on the CPU: the contig index, the
-lookup, and the SAM and depth files byte for byte (tolerance 0)."""
+lookup, and the SAM and depth files byte for byte (tolerance 0); and the
+pass's spans and counters."""
+
+import os
 
 import numpy as np
 import pytest
@@ -159,3 +162,70 @@ def test_align_reads_direct():
     out = P.align_reads_to_contigs(codes, lens, [genome], index=idx, k=31, cigars=True)
     assert (out["cid"] == 0).all() and (out["score"] == L).all()
     assert out["cigar"] == [f"{L}="] * B and not out["nm"].any()
+
+
+TIMING_KEYS = {"index_s", "align_s", "tb_dp_s", "tb_walk_s", "cigar_render_s", "host_s",
+               "reads_aligned"}
+
+
+def test_post_asm_spans_cover_the_pass(tmp_path, monkeypatch):
+    """Under a recording trace the pass's spans are the children of the
+    caller's `post_asm` span and cover it; their counters equal the
+    returned stats, the traceback codes' bytes and the SAM file's size,
+    and timings keeps its keys, read from the spans."""
+    from mhm2_proxy_tpu_torch.ops import ssw
+    from mhm2_proxy_tpu_torch.utils import trace
+
+    _, port = _assemblers(tmp_path, np.random.default_rng(9))
+    shapes = []
+    orig = ssw.global_tb_pointers
+
+    def tb_pointers(*a, **kw):
+        tb = orig(*a, **kw)
+        shapes.append(tuple(tb.shape))
+        return tb
+
+    monkeypatch.setattr(ssw, "global_tb_pointers", tb_pointers)
+    sam, dep = str(tmp_path / "t.sam"), str(tmp_path / "t.tsv")
+    tm = {}
+    with trace.recording() as spans:
+        with trace.span("post_asm") as top:
+            stats = P.post_asm_align(port, sam_fname=sam, abundance_fname=dep, block_reads=200,
+                                     timings=tm)
+    kids = [s for s in spans if s.name.startswith("post_asm.")]
+    assert {s.name for s in kids} == {"post_asm.index", "post_asm.reads", "post_asm.align",
+                                      "post_asm.tb_dp", "post_asm.tb_walk",
+                                      "post_asm.cigar_render", "post_asm.sam"}
+    assert all(s.parent == top.id for s in kids)
+    covered = sum(s.t1 - s.t0 for s in kids)
+    assert covered <= top.t1 - top.t0 and covered >= 0.99 * (top.t1 - top.t0)
+    rows = trace.summary(spans)
+    n_blocks = port.packed_reads.n_blocks(200)
+    assert n_blocks > 1 and rows["post_asm.align"]["calls"] == n_blocks
+    assert rows["post_asm.tb_dp"]["calls"] == n_blocks
+    assert rows["post_asm.align"]["reads"] == stats["sampled_reads"] > 0
+    assert rows["post_asm.align"]["anchored"] == tm["reads_aligned"] > 0
+    assert rows["post_asm.tb_dp"]["tb_bytes"] == sum(int(np.prod(s)) for s in shapes)
+    assert len(shapes) == n_blocks
+    assert rows["post_asm.sam"]["sam_bytes"] == os.path.getsize(sam)
+    assert set(tm) == TIMING_KEYS
+    for key, name in (("index_s", "index"), ("align_s", "align"), ("tb_dp_s", "tb_dp"),
+                      ("tb_walk_s", "tb_walk"), ("cigar_render_s", "cigar_render"),
+                      ("host_s", "sam")):
+        assert tm[key] == pytest.approx(rows[f"post_asm.{name}"]["seconds"], rel=1e-9), key
+
+
+def test_post_asm_files_equal_with_and_without_recording(tmp_path):
+    """A recording trace changes nothing the pass writes, and an untraced
+    pass's timings keep their keys."""
+    from mhm2_proxy_tpu_torch.utils import trace
+
+    _, port = _assemblers(tmp_path, np.random.default_rng(9))
+    tm = {}
+    plain = _files(tmp_path, "plain", lambda s, d: P.post_asm_align(
+        port, sam_fname=s, abundance_fname=d, block_reads=512, timings=tm))
+    with trace.recording():
+        traced = _files(tmp_path, "traced", lambda s, d: P.post_asm_align(
+            port, sam_fname=s, abundance_fname=d, block_reads=512))
+    assert traced[:2] == plain[:2]
+    assert set(tm) == TIMING_KEYS and tm["reads_aligned"] > 0
