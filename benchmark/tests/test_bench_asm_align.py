@@ -86,9 +86,9 @@ def test_cpu_run(case, monkeypatch):
     plant, check_fn, caught_by = CASES[case]
     if plant:
         plant(monkeypatch)
-    cfg = communities.config("cami_low12", genomes=2, genome_len=12_000, pairs=720)
-    wl = communities.workload("cami_low12", "asm_align", TINY_PARAMS)
-    out = run.run_cell(wl["name"], 2**31 + 17, 0, False, device="cpu", require_chip=False,
+    cfg = communities.config("cami_low12_align", genomes=2, genome_len=12_000, pairs=720)
+    wl = communities.workload("cami_low12_align", "asm_align", TINY_PARAMS)
+    out = run.run_cell(CELL, 2**31 + 17, 0, False, device="cpu", require_chip=False,
                        config=cfg, workload=wl, check_fn=check_fn)
     assert out["correct"] is (case == "none")
     assert set(out["checks"]) == {"merge_pairs_differing", "round_contigs_differing",
@@ -170,7 +170,7 @@ def test_readers_on_a_job(tmp_path):
 def test_traced_run_on_the_card(cuda):
     from benchmark.tests.test_bench_card import _traced_run, small
 
-    out = _traced_run(CELL, small("cami_low12"))
+    out = _traced_run(CELL, small("cami_low12_align"))
     assert out["correct"], out["checks"]
     assert set(READERS) <= set(out["metrics"])
     assert 0 < out["metrics"]["ssw_roofline.asm_align"]["value"] <= 100

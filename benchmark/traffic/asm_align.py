@@ -9,8 +9,8 @@ at least 31 bases against the final contigs) and
 `final_assembly_depths.tsv`. Set-up makes the community from the seed and
 writes its FASTQ as the ladder traffic does, then runs a slice of the same
 reads through the same pipeline once, alignment included, so that every
-round, block and alignment shape has run. A `pairs` parameter, where the
-cell gives one, caps the configuration's read pairs.
+round, block and alignment shape has run. The configuration's
+`post_asm_align` and `post_asm_abundance` give the two flags.
 
 The check, once the window has closed: the ladder traffic's check of every
 job's merged reads, round contigs and final contigs against the plain
@@ -42,17 +42,15 @@ from . import ladder, post_asm
 
 def _options(ctx, fastq: str, out_dir: str):
     opts = ladder._options(ctx, fastq, out_dir)
-    opts.post_asm_align = opts.post_asm_abundance = True
+    opts.post_asm_align = bool(ctx.config["post_asm_align"])
+    opts.post_asm_abundance = bool(ctx.config["post_asm_abundance"])
     return opts
 
 
 def setup(ctx) -> None:
     from mhm2_proxy_tpu_torch.main import run_pipeline
 
-    p = ctx.workload["params"]
-    if "pairs" in p:
-        ctx.config = dict(ctx.config, pairs=min(int(p["pairs"]), ctx.config["pairs"]))
-    cfg = ctx.config
+    p, cfg = ctx.workload["params"], ctx.config
     parts = ctx.state["setup_parts"] = {}
     t0 = time.perf_counter()
     com = ctx.state["community"] = make_community(cfg, ctx.seed)
